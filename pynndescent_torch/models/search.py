@@ -1,0 +1,165 @@
+"""Epsilon-bounded graph search, lockstep batched beam (counterpart of
+pynndescent_tpu/models/search.py).
+
+A batch of queries steps in lockstep: each query keeps one sorted beam of
+``beam_width`` (distance, id, unexpanded) entries; every step expands the
+``expansions_per_step`` best unexpanded entries under the bound
+``d_k + epsilon * (d_k - min_distance)``, computes the distances of their
+adjacency rows and merges them back (the merge's dedup is the visited set).
+The JAX package runs the loop as a device ``while_loop``; here each "any
+query still active" test is one host sync.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pynndescent_torch.ops.neighbors import (NeighborState, make_neighbor_state, merge_candidates,
+                                              take_smallest)
+from pynndescent_torch.ops.rp_trees import descend_tree
+from pynndescent_torch.utils import rng
+
+_TREE_KEYS = ("a_pt", "b_pt", "child", "leaf_lo", "leaf_hi", "tree_order")
+# gathered candidate elements per seeding pass past a leaf's first leaf_max
+# members (the size of one beam step's gather at 8192 queries, d = 128)
+_SEED_TILE_ELEMS = 1 << 25
+
+
+def tree_to_device(tree: dict, device) -> dict:
+    """FlatTree arrays (numpy dict) as int64 tensors on ``device``, plus the
+    host scalars ``depth``, ``angular``, ``leaf_size`` and ``max_leaf``."""
+    out = {k: torch.as_tensor(np.asarray(tree[k]), dtype=torch.int64, device=device)
+           for k in _TREE_KEYS}
+    span = np.asarray(tree["leaf_hi"]) - np.asarray(tree["leaf_lo"])
+    out.update(depth=int(tree["depth"]), angular=bool(tree["angular"]),
+               leaf_size=int(tree.get("leaf_size", 0)), max_leaf=int(span.max(initial=0)))
+    return out
+
+
+def _bound(dist_k, epsilon, min_distance):
+    return dist_k + epsilon * (dist_k - min_distance)
+
+
+def _leaf_window(tree, lo, hi, first: int, width: int):
+    """Tree-order ids of leaf members ``[first, first + width)`` of each
+    query's leaf ``[lo, hi)``, -1 past the leaf's end."""
+    n = tree["tree_order"].shape[0]
+    offs = lo[:, None] + first + torch.arange(width, device=lo.device)[None, :]
+    return torch.where(offs < hi[:, None], tree["tree_order"][torch.clamp(offs, max=n - 1)],
+                       torch.full_like(offs, -1)).to(torch.int32)
+
+
+def _seed_beam(queries, X, tree, lo, hi, rand_ids, *, beam_width: int, leaf_max: int,
+               dist_rowwise) -> NeighborState:
+    """Initial beam: k random points and every member of each query's
+    search-tree leaf, as in the reference's search init. The first pass
+    merges the random points and the first ``leaf_max`` members of every
+    leaf at once, as the JAX package does (search.py:75-94). The JAX
+    package stops there (a static shape for its compile cache); here the
+    queries whose leaf reaches further merge the rest in chunks sized so that
+    the gathered [rows, chunk, d] tile holds about _SEED_TILE_ELEMS
+    elements."""
+    q, d = queries.shape
+    dev = queries.device
+    state = make_neighbor_state(q, beam_width, device=dev)
+    rows, extra = torch.arange(q, device=dev), rand_ids
+    first, width = 0, leaf_max
+    end = tree["max_leaf"] if tree is not None else 0
+    while True:
+        cand = extra
+        if first < end:
+            cand = torch.cat([_leaf_window(tree, lo[rows], hi[rows], first, width), extra], dim=-1)
+        dist = dist_rowwise(queries[rows], X[torch.clamp(cand, min=0).to(torch.int64)])
+        dist = torch.where(cand < 0, torch.full_like(dist, float("inf")), dist)
+        sub, _ = merge_candidates(
+            NeighborState(state.idx[rows], state.dist[rows], state.flag[rows]), cand, dist)
+        state = NeighborState(state.idx.index_copy(0, rows, sub.idx),
+                              state.dist.index_copy(0, rows, sub.dist),
+                              state.flag.index_copy(0, rows, sub.flag))
+        first += width
+        if first >= end:
+            return state
+        if first == leaf_max:  # after the first pass: only the queries of larger leaves
+            rows = torch.nonzero(hi - lo > first).squeeze(1)
+            if rows.numel() == 0:
+                return state
+            width = max(leaf_max, _SEED_TILE_ELEMS // (rows.numel() * d))
+            extra = torch.empty((rows.numel(), 0), dtype=torch.int32, device=dev)
+
+
+def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
+                 min_distance: float, beam_width: int, dist_rowwise, max_steps: int,
+                 leaf_max: int, expansions_per_step: int = 2):
+    """Search one block of queries (JAX search.py:49). ``tree`` is a dict
+    from ``tree_to_device`` or None. Returns (idx [q, k], dist [q, k],
+    steps)."""
+    q = queries.shape[0]
+    n = X.shape[0]
+    dev = queries.device
+    lo = hi = None
+    if tree is not None:
+        coins = torch.randint(0, 1 << 32, (q,), generator=gen, device=dev, dtype=torch.int64)
+        lo, hi = descend_tree(tree, X, queries, coins, tree["depth"], tree["angular"])
+    rand_ids = torch.randint(0, n, (q, k), generator=gen, device=dev, dtype=torch.int32)
+    state = _seed_beam(queries, X, tree, lo, hi, rand_ids, beam_width=beam_width,
+                       leaf_max=leaf_max, dist_rowwise=dist_rowwise)
+
+    E = expansions_per_step
+    deg = adj.shape[1]
+    steps = 0
+    while steps < max_steps:
+        bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
+        if not bool((state.flag & (state.dist < bound[:, None])).any()):
+            break
+        masked = torch.where(state.flag, state.dist, torch.full_like(state.dist, float("inf")))
+        if E == 1:
+            pos = torch.argmin(masked, dim=1, keepdim=True)
+            vdist = torch.gather(masked, 1, pos)
+        else:
+            vdist, pos = take_smallest(masked, E)
+        do = vdist < bound[:, None]
+        v = torch.where(do, torch.gather(state.idx, 1, pos), torch.zeros_like(pos, dtype=torch.int32))
+        flag = state.flag.scatter(1, pos, torch.where(do, False, torch.gather(state.flag, 1, pos)))
+        state = state._replace(flag=flag)
+        nbrs = adj[v.to(torch.int64)].reshape(q, E * deg)
+        nbrs = torch.where(do.repeat_interleave(deg, dim=1), nbrs, torch.full_like(nbrs, -1))
+        nd = dist_rowwise(queries, X[torch.clamp(nbrs, min=0).to(torch.int64)])
+        nd = torch.where(nbrs < 0, torch.full_like(nd, float("inf")), nd)
+        state, _ = merge_candidates(state, nbrs, nd)
+        steps += 1
+    return state.idx[:, :k], state.dist[:, :k], steps
+
+
+def search(queries, X, adj, tree, seed: int, *, k: int, epsilon: float = 0.1,
+           min_distance: float = 0.0, beam_width: int | None = None, dist_rowwise=None,
+           max_steps: int | None = None, batch_size: int = 8192, expansions_per_step: int = 2):
+    """Search driver over blocks of ``batch_size`` queries (JAX
+    search.py:142). ``tree`` is a dict from ``tree_to_device`` or None.
+    Returns (idx, dist) tensors on the queries' device."""
+    nq = queries.shape[0]
+    if beam_width is None:
+        beam_width = max(2 * k, 48)
+    beam_width = max(beam_width, k)
+    if max_steps is None:
+        max_steps = int(X.shape[0])
+    leaf_max = 0
+    if tree is not None:
+        # the first seeding pass follows the configured leaf size; members
+        # of an oversized leaf past it stream in later passes (_seed_beam)
+        if tree["leaf_size"] > 0:
+            leaf_max = min(-(-2 * tree["leaf_size"] // 64) * 64, tree["tree_order"].shape[0])
+        else:
+            leaf_max = tree["max_leaf"]
+    out_idx, out_dist = [], []
+    for s in range(0, nq, batch_size):
+        e = min(s + batch_size, nq)
+        idx, dist, _ = search_block(
+            queries[s:e], X, adj, tree, rng.generator(rng.derive_seed(seed, s), queries.device),
+            k=k, epsilon=epsilon, min_distance=float(min_distance), beam_width=int(beam_width),
+            dist_rowwise=dist_rowwise, max_steps=int(max_steps), leaf_max=leaf_max,
+            expansions_per_step=int(expansions_per_step),
+        )
+        out_idx.append(idx)
+        out_dist.append(dist)
+    return torch.cat(out_idx, 0), torch.cat(out_dist, 0)

@@ -1,0 +1,578 @@
+"""NN-descent graph construction (counterpart of
+pynndescent_tpu/ops/nndescent.py).
+
+The same row-local formulation as the JAX package: every vertex gathers a
+fixed-width candidate pool (sampled new/old forward and reverse 1-hop
+candidates plus their 2-hop expansions), computes all distances as one
+batched tile and merges them into its own sorted row. The stages, in order:
+the forest init through the ``leaf_allpairs`` kernel, a random fill, at large
+n the locality phases (one ``window_topm`` sweep per tree order), and the
+join loop with the delta early exit.
+
+Differences from the JAX package, all of them consequences of running eagerly
+on one GPU: blocked loops update the state in place (the last block is
+clamped to ``n - b`` and re-merges rows, as in JAX), each delta test is one
+host sync, random streams are ``torch.Generator``s seeded from
+``(seed, role, *tags)``, and the TPU-only gates (SMEM leaf-table cap, Mosaic
+d <= 128, VMEM sweep limits) and the quiet kernel-to-XLA fallbacks are gone.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pynndescent_torch.ops import distances as dst
+from pynndescent_torch.ops import init_kernels as ik
+from pynndescent_torch.ops.neighbors import (
+    NeighborState,
+    block_starts,
+    float_order_key,
+    make_neighbor_state,
+    merge_rows_,
+    sort_by_distance,
+    take_smallest,
+)
+from pynndescent_torch.utils import rng
+
+DEFAULT_BLOCK_ROWS = 8192
+# below this many vertices the slot reservoir samples reverse candidates;
+# above it the exact segmented sort (JAX ops/nndescent.py:159)
+REVERSE_SAMPLE_SORT_MIN_N = 32768
+_INF = float("inf")
+
+
+def _resolve_rowwise_metric(metric, cast_candidates_f32: bool = False):
+    """fn(Q [b, d], C [b, m, d]) -> [b, m] distances. ``cast_candidates_f32``
+    upcasts gathered candidate rows stored in bfloat16."""
+    dst.check_metric(metric)
+    if cast_candidates_f32:
+        return lambda Q, C: dst.pairwise_rowwise(metric, Q, C.to(torch.float32))
+    return lambda Q, C: dst.pairwise_rowwise(metric, Q, C)
+
+
+def _long(t):
+    return t.to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# Candidate sampling
+# ---------------------------------------------------------------------------
+
+
+def _forward_sample(idx, pri, mask, c):
+    """Per row, the (up to) c masked entries of smallest priority.
+    Returns (candidate ids [n, c], positions [n, c], valid [n, c])."""
+    c = min(c, idx.shape[-1])
+    masked = torch.where(mask, pri, torch.full_like(pri, _INF))
+    vals, pos = take_smallest(masked, c)
+    valid = torch.isfinite(vals)
+    cand = torch.where(valid, torch.gather(idx, -1, pos), torch.full_like(pos, -1, dtype=idx.dtype))
+    return cand.to(torch.int32), pos, valid
+
+
+def _reverse_sample(idx, pri, slot, mask, n, c):
+    """Slot-reservoir reverse sampling (JAX :127): each directed edge
+    (i -> idx[i, l]) bids for a random slot of its target's row with a random
+    priority; the smallest bid per slot wins, ties to the largest source id.
+    Returns (reverse candidates [n, c], per-edge win mask [n, k])."""
+    dev = idx.device
+    src = torch.arange(n, dtype=torch.int64, device=dev)[:, None].expand(idx.shape)
+    tgt = torch.where(mask, _long(idx), torch.full_like(_long(idx), n))
+    pri = torch.where(mask, pri, torch.full_like(pri, _INF))
+    flat = (tgt * c + _long(slot)).reshape(-1)
+    buf = torch.full(((n + 1) * c,), _INF, dtype=torch.float32, device=dev)
+    buf.scatter_reduce_(0, flat, pri.reshape(-1), reduce="amin")
+    tied = (pri == buf[flat].view(idx.shape)) & mask
+    rcand = torch.full(((n + 1) * c,), -1, dtype=torch.int64, device=dev)
+    rcand.scatter_reduce_(0, flat, torch.where(tied, src, torch.full_like(src, -1)).reshape(-1),
+                          reduce="amax")
+    won = tied & (src == rcand[flat].view(idx.shape))
+    return rcand.view(n + 1, c)[:n].to(torch.int32), won
+
+
+def _reverse_samples_sorted(idx, pri, new_mask, old_mask, n, c):
+    """Exact reverse sampling of the new and old edge sets with one sort
+    (JAX :162): edges keyed by (target * 2 + is_new, priority); the first c
+    of each group win. Returns (rev_new [n, c], rev_old [n, c], won_new
+    [n, k])."""
+    dev = idx.device
+    k = idx.shape[1]
+    nk = n * k
+    valid = new_mask | old_mask
+    group = torch.where(valid, _long(idx) * 2 + new_mask.to(torch.int64),
+                        torch.full_like(_long(idx), 2 * n + 2)).reshape(-1)
+    p = torch.where(valid, pri, torch.full_like(pri, _INF)).reshape(-1)
+    _, perm = torch.sort(group * (1 << 32) + float_order_key(p), stable=True)
+    g_s = group[perm]
+    s_s = perm // k  # source row of each sorted edge
+    posn = torch.arange(nk, dtype=torch.int64, device=dev)
+    is_head = torch.ones(nk, dtype=torch.bool, device=dev)
+    is_head[1:] = g_s[1:] != g_s[:-1]
+    rank = posn - torch.cummax(torch.where(is_head, posn, torch.full_like(posn, -1)), 0).values
+    keep = (rank < c) & (g_s < 2 * n)
+    new_s = (g_s & 1) == 1
+    tgt = g_s >> 1
+    cols = torch.where(keep, rank, torch.zeros_like(rank))
+    out = []
+    for sel in (keep & new_s, keep & ~new_s):
+        # losers go to a dump row n, so every kept (row, col) is unique
+        buf = torch.full((n + 1, c), -1, dtype=torch.int32, device=dev)
+        buf[torch.where(sel, tgt, torch.full_like(tgt, n)), cols] = s_s.to(torch.int32)
+        out.append(buf[:n])
+    won = torch.zeros(nk + 1, dtype=torch.bool, device=dev)
+    won[torch.where(keep & new_s, perm, torch.full_like(perm, nk))] = True
+    return out[0], out[1], won[:nk].view(n, k)
+
+
+def _compact_rows(rows, gen):
+    """Push valid (>= 0) entries to the front of each row in random order;
+    returns (compacted rows, per-row valid count)."""
+    invalid = rows < 0
+    rnd = torch.rand(rows.shape, generator=gen, device=rows.device)
+    _, order = torch.sort(invalid.to(torch.float32) + rnd, dim=-1, stable=True)
+    return torch.gather(rows, -1, order), (~invalid).sum(dim=-1).to(torch.int32)
+
+
+class CandidateSample(NamedTuple):
+    hop_new: torch.Tensor  # [n, 2c] new 1-hop candidates (fwd + rev), compacted
+    cnt_new: torch.Tensor  # [n]
+    hop_old: torch.Tensor  # [n, 2c] old 1-hop candidates (fwd + rev), compacted
+    cnt_old: torch.Tensor  # [n]
+    flag: torch.Tensor  # [n, k] updated (cleared) new-flags
+
+
+def build_candidates(state: NeighborState, gen, max_candidates: int,
+                     window_rows: int | None = None) -> CandidateSample:
+    """Sample new/old forward + reverse candidates and clear the sampled new
+    flags (JAX :236). With ``window_rows`` only edges whose endpoints share
+    a window lose their flag."""
+    n, k = state.idx.shape
+    dev = state.idx.device
+    c = max_candidates
+    valid = state.idx >= 0
+    pri = torch.rand((n, k), generator=gen, device=dev)
+    new_mask = valid & state.flag
+    old_mask = valid & ~state.flag
+    fwd_new, pos_new, sel_new = _forward_sample(state.idx, pri, new_mask, c)
+    fwd_old, _, _ = _forward_sample(state.idx, pri, old_mask, c)
+
+    if n >= REVERSE_SAMPLE_SORT_MIN_N:
+        rpri = torch.rand((n, k), generator=gen, device=dev)
+        rev_new, rev_old, won_new = _reverse_samples_sorted(state.idx, rpri, new_mask, old_mask, n, c)
+    else:
+        rpri_n = torch.rand((n, k), generator=gen, device=dev)
+        rpri_o = torch.rand((n, k), generator=gen, device=dev)
+        slot_n = torch.randint(0, c, (n, k), generator=gen, device=dev)
+        slot_o = torch.randint(0, c, (n, k), generator=gen, device=dev)
+        rev_new, won_new = _reverse_sample(state.idx, rpri_n, slot_n, new_mask, n, c)
+        rev_old, _ = _reverse_sample(state.idx, rpri_o, slot_o, old_mask, n, c)
+
+    flag = state.flag
+    if window_rows is not None and window_rows < n:
+        rows = torch.arange(n, device=dev)[:, None]
+        fwd_same_win = sel_new & (torch.clamp(fwd_new, min=0) // window_rows == rows // window_rows)
+        edge_same_win = torch.clamp(state.idx, min=0) // window_rows == rows // window_rows
+        won_clear = won_new & edge_same_win
+    else:
+        fwd_same_win = sel_new
+        won_clear = won_new
+    flag = flag.scatter(1, pos_new, torch.where(fwd_same_win, False, torch.gather(flag, 1, pos_new)))
+    flag = flag & ~won_clear
+
+    hop_new, cnt_new = _compact_rows(torch.cat([fwd_new, rev_new], dim=-1), gen)
+    hop_old, cnt_old = _compact_rows(torch.cat([fwd_old, rev_old], dim=-1), gen)
+    return CandidateSample(hop_new, cnt_new, hop_old, cnt_old, flag)
+
+
+# ---------------------------------------------------------------------------
+# Row-local join
+# ---------------------------------------------------------------------------
+
+
+def _slice_hop2(table, hops):
+    """2-hop expansion: for each hop h >= 0 take ``table[h]`` whole (the
+    tables are compacted in random order, so a leading slice is a uniform
+    sample); -1 hops expand to -1."""
+    picked = table[_long(torch.clamp(hops, min=0))]
+    b, h, t = picked.shape
+    return torch.where((hops >= 0)[:, :, None], picked, torch.full_like(picked, -1)).reshape(b, h * t)
+
+
+def _join_block(row_ids, hop_new, hop_old, tbl_nn, tbl_no, tbl_on, X_rows, dist_rowwise,
+                n_real: int, win_start: int = 0):
+    """Candidate pool of a row block and its distances (JAX :315). Pool ids
+    outside ``[win_start, win_start + len(X_rows))`` become -1 (locality
+    windows). Returns (pool ids [b, P], distances [b, P])."""
+    hop2_new = torch.cat([_slice_hop2(tbl_nn, hop_new), _slice_hop2(tbl_no, hop_new)], dim=-1)
+    hop2_old = _slice_hop2(tbl_on, hop_old)
+    pool = torch.cat([hop_new, hop2_new, hop2_old], dim=-1)
+    pool = torch.where(row_ids[:, None] < n_real, pool, torch.full_like(pool, -1))
+    W = X_rows.shape[0]
+    local = pool - win_start
+    pool = torch.where((local >= 0) & (local < W), pool, torch.full_like(pool, -1))
+    local = _long(torch.clamp(local, 0, W - 1))
+    Q = X_rows[_long(torch.clamp(row_ids - win_start, 0, W - 1))]
+    d = dist_rowwise(Q, X_rows[local])
+    return pool, torch.where(pool < 0, torch.full_like(d, _INF), d)
+
+
+def _descent_iteration(state: NeighborState, X, seed: int, *, max_candidates: int, dist_rowwise,
+                       block_rows: int, hop2_new_samples: int, hop2_old_samples: int,
+                       window_rows: int | None = None):
+    """One join iteration over all row blocks; updates ``state`` in place
+    and returns (state, number of changed slots as a 0-d tensor)."""
+    n = state.idx.shape[0]
+    gen = rng.generator(seed, state.idx.device)
+    sample = build_candidates(state, gen, max_candidates, window_rows)
+    state = NeighborState(state.idx, state.dist, sample.flag)
+
+    t_nn = max(1, (hop2_new_samples + 1) // 2)
+    t_no = max(0, hop2_new_samples - t_nn)
+    tbl_nn = sample.hop_new[:, :t_nn]
+    tbl_no = sample.hop_old[:, :t_no]
+    tbl_on = sample.hop_new[:, :hop2_old_samples]
+
+    n_x = X.shape[0]
+    windowed = window_rows is not None and window_rows < n_x
+    b = min(block_rows, n)
+    if windowed:
+        # a row block must fit inside its locality window
+        b = min(b, window_rows)
+    changes = torch.zeros((), dtype=torch.int64, device=state.idx.device)
+    for start in block_starts(n, b):
+        rows = torch.arange(start, start + b, dtype=torch.int32, device=state.idx.device)
+        if windowed:
+            ws = min(max((start // window_rows) * window_rows, 0), n_x - window_rows)
+            ws = max(ws, start + b - window_rows)
+            X_rows = X[ws:ws + window_rows]
+        else:
+            ws, X_rows = 0, X
+        pool, d = _join_block(
+            rows, sample.hop_new[start:start + b], sample.hop_old[start:start + b],
+            tbl_nn, tbl_no, tbl_on, X_rows, dist_rowwise, n_real=n_x, win_start=ws,
+        )
+        changes = changes + merge_rows_(state, start, pool, d)
+    return state, changes
+
+
+def descent_loop(state, X, seed: int, stop_count: float, *, n_iters: int, max_candidates: int,
+                 dist_rowwise, block_rows: int, hop2_new_samples: int, hop2_old_samples: int,
+                 window_rows: int | None = None, verbose: bool = False):
+    """Join iterations until ``n_iters`` or until an iteration changes at
+    most ``stop_count`` slots (the delta exit, JAX :1145). Each test reads
+    the change count: one host sync per iteration."""
+    for it in range(n_iters):
+        state, changes = _descent_iteration(
+            state, X, rng.derive_seed(seed, rng.ROLE_DESCENT_ITER, it),
+            max_candidates=max_candidates, dist_rowwise=dist_rowwise, block_rows=block_rows,
+            hop2_new_samples=hop2_new_samples, hop2_old_samples=hop2_old_samples,
+            window_rows=window_rows,
+        )
+        changes = int(changes)
+        if verbose:
+            print(f"\t{it + 1}  /  {n_iters}  (changes: {changes})")
+        if changes <= stop_count:
+            break
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Initialisation
+# ---------------------------------------------------------------------------
+
+
+def init_random(state: NeighborState, X, seed: int, n_extra: int, dist_rowwise,
+                block_rows: int = 65536):
+    """Random fill (JAX :486): every row merges itself at distance 0 and
+    ``n_extra`` uniform random candidates."""
+    n = X.shape[0]
+    dev = X.device
+    b = min(block_rows, n)
+    gen = rng.generator(seed, dev)
+    for s0 in block_starts(n, b):
+        rows = torch.arange(s0, s0 + b, dtype=torch.int32, device=dev)
+        cand = torch.randint(0, n, (b, n_extra), generator=gen, device=dev, dtype=torch.int32)
+        cand = torch.cat([rows[:, None], cand], dim=-1)
+        d = dist_rowwise(X[_long(rows)], X[_long(cand)])
+        d = torch.where(cand == rows[:, None], torch.zeros_like(d), d)
+        merge_rows_(state, s0, cand, d)
+    return state
+
+
+def _inverse_permutation(order):
+    inv = torch.empty_like(order)
+    inv[_long(order)] = torch.arange(order.shape[0], dtype=order.dtype, device=order.device)
+    return inv
+
+
+def init_from_forest(state: NeighborState, X, orders, starts, sizes, dist_rowwise, leaf_cap: int,
+                     block_rows: int = 4096):
+    """Gather-path forest init (JAX :518): per block of point ids, every
+    tree's leaf window becomes one [b, T * leaf_cap] candidate tile. Used
+    where the leaf kernel does not apply (bfloat16 join data)."""
+    n = X.shape[0]
+    T = orders.shape[0]
+    dev = X.device
+    b = min(block_rows, n)
+    offsets = torch.arange(leaf_cap, dtype=torch.int64, device=dev)
+    inv = torch.stack([_inverse_permutation(orders[t]) for t in range(T)])
+    trow = torch.arange(T, device=dev)[:, None]
+    for s0 in block_starts(n, b):
+        pos = _long(inv[:, s0:s0 + b])  # [T, b]
+        lstart = _long(starts[trow, pos])
+        lsize = _long(sizes[trow, pos])
+        win = torch.clamp(lstart[:, :, None] + offsets, max=n - 1)
+        cand = orders[trow[:, :, None], win]
+        cand = torch.where(offsets < torch.clamp(lsize, max=leaf_cap)[:, :, None], cand,
+                           torch.full_like(cand, -1))
+        cand = cand.permute(1, 0, 2).reshape(b, T * leaf_cap)
+        pts = torch.arange(s0, s0 + b, device=dev)
+        d = dist_rowwise(X[pts], X[_long(torch.clamp(cand, min=0))])
+        merge_rows_(state, s0, cand, torch.where(cand < 0, torch.full_like(d, _INF), d))
+    return state
+
+
+def kernel_forest_init(state: NeighborState, X, orders, starts, sizes, metric: str,
+                       block_rows: int = 8192):
+    """Forest init through the ``leaf_allpairs`` kernel (replaces JAX
+    ``pallas_forest_init``, :579). Per tree: permute X into tree order, one
+    kernel launch for every leaf's distance tile, rebuild the leaf-member
+    id table, mask positions past ``start + LEAF_CAP`` of oversized leaves
+    (they stay for the random fill), permute back to id space and merge.
+
+    The leaf table is sized by the true leaf count (the JAX package capped
+    it at the TPU's SMEM budget). The tile is LEAF_CAP = 64 rows whatever
+    the leaf size, as the JAX package's rounding of ``leaf_cap`` to a
+    multiple of 64, capped at 64, always gives."""
+    n = X.shape[0]
+    dev = X.device
+    cap = ik.LEAF_CAP
+    l_starts, l_sizes = ik.leaf_tables_from_orders(starts, sizes, n)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    head = starts == pos[None]
+    leaf_rank = _long(torch.cumsum(head.to(torch.int32), dim=1) - 1)
+    covered = (pos[None] - starts) < cap
+    offs = torch.arange(cap, dtype=torch.int64, device=dev)
+    b = min(block_rows, n)
+    for t in range(orders.shape[0]):
+        order = _long(orders[t])
+        D = ik.leaf_allpairs(X[order].contiguous(), l_starts[t].contiguous(),
+                             l_sizes[t].contiguous(), metric=metric)
+        win = torch.clamp(_long(l_starts[t])[:, None] + offs, max=n - 1)
+        id_table = torch.where(offs < torch.clamp(l_sizes[t], max=cap)[:, None].to(torch.int64),
+                               orders[t][win], torch.full_like(win, -1, dtype=orders.dtype))
+        I = id_table[leaf_rank[t]]
+        ok = covered[t][:, None]
+        D = torch.where(ok & (I >= 0), D, torch.full_like(D, _INF))
+        I = torch.where(ok, I, torch.full_like(I, -1))
+        inv = _long(_inverse_permutation(orders[t]))
+        cand_d, cand_i = D[inv], I[inv]
+        for s0 in block_starts(n, b):
+            merge_rows_(state, s0, cand_i[s0:s0 + b], cand_d[s0:s0 + b])
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Locality phases
+# ---------------------------------------------------------------------------
+
+
+def _state_to_tree_order(state: NeighborState, order):
+    """Re-index the state into a tree's position space: row r describes the
+    point at tree position r and every neighbor id is a tree position."""
+    inv = _inverse_permutation(order)
+    o = _long(order)
+    idx_p = state.idx[o]
+    idx_p = torch.where(idx_p >= 0, inv[_long(torch.clamp(idx_p, min=0))], torch.full_like(idx_p, -1))
+    return NeighborState(idx_p, state.dist[o], state.flag[o])
+
+
+def _state_from_tree_order(state_p: NeighborState, order):
+    """Inverse of _state_to_tree_order."""
+    inv = _long(_inverse_permutation(order))
+    idx = torch.where(state_p.idx >= 0, order[_long(torch.clamp(state_p.idx, min=0))],
+                      torch.full_like(state_p.idx, -1))
+    return NeighborState(idx[inv], state_p.dist[inv], state_p.flag[inv])
+
+
+def window_sweep(state_p: NeighborState, Xp, *, win: int, m: int, metric: str,
+                 block_rows: int = 65536, offset: int = 0):
+    """Merge each point's exact within-window top-m (``window_topm``
+    kernel) into a state in tree-position space (JAX ``_jit_window_sweep``,
+    :754). Merged entries arrive flagged new."""
+    ids, dd = ik.window_topm(Xp, win=win, m=m, metric=metric, offset=offset)
+    n = state_p.idx.shape[0]
+    b = min(block_rows, n)
+    for s0 in block_starts(n, b):
+        merge_rows_(state_p, s0, ids[s0:s0 + b], dd[s0:s0 + b])
+    return state_p
+
+
+def _resolve_locality(locality, n_x, forest, n_iters):
+    """Resolve ``locality`` to (window, phases, phase_iters, global_iters,
+    refresh, sweep_win, sweep_m, sweep_stagger), or None when disabled or
+    inapplicable (JAX :818)."""
+    if locality is None or forest is None:
+        return None
+    if locality == "auto":
+        if n_x < 400_000:
+            return None
+        # the JAX package's tuned large-table schedule: 12 sweep-only phases
+        # over 12 tree orders, no stagger, then a 2-iteration global polish
+        locality = {"sweep": 1024, "phases": 12, "phase_iters": 0,
+                    "global_iters": 2, "sweep_stagger": False}
+    elif not isinstance(locality, dict):
+        raise ValueError("locality must be None, 'auto', or a dict")
+    W = int(locality.get("window", 65536))
+    if W >= n_x:
+        return None
+    phases = int(locality.get("phases", 2))
+    phase_iters = int(locality.get("phase_iters", max(4, n_iters // 2)))
+    global_iters = int(locality.get("global_iters", 2))
+    sweep_win = int(locality.get("sweep", 0))
+    sweep_m = int(locality.get("sweep_m", 32))
+    sweep_stagger = bool(locality.get("sweep_stagger", True))
+    if sweep_win and (sweep_win % 128 or not 256 <= sweep_win <= 1024):
+        raise ValueError("locality['sweep'] must be a multiple of 128 in [256, 1024]")
+    if sweep_win >= n_x:
+        sweep_win = 0
+    refresh = bool(locality.get("refresh_flags", True))
+    phases = min(phases, int(forest[0].shape[0]))
+    if phases <= 0 or (phase_iters <= 0 and not sweep_win):
+        return None
+    return (W, phases, phase_iters, global_iters, refresh, sweep_win, sweep_m, sweep_stagger)
+
+
+# ---------------------------------------------------------------------------
+# Driver
+# ---------------------------------------------------------------------------
+
+
+def nn_descent(
+    X,
+    n_neighbors: int,
+    seed: int,
+    *,
+    metric: str = "sqeuclidean",
+    n_iters: int | None = None,
+    delta: float = 0.001,
+    max_candidates: int | None = None,
+    forest=None,
+    leaf_cap: int | None = None,
+    block_rows: int = DEFAULT_BLOCK_ROWS,
+    hop2_new_samples: int | None = None,
+    hop2_old_samples: int | None = None,
+    compute_dtype=None,
+    locality=None,
+    verbose: bool = False,
+):
+    """Full NN-descent driver (JAX :877). Returns (indices i32[n, k],
+    distances f32[n, k]) sorted ascending, as tensors on X's device.
+
+    ``forest`` is the init forest's ``(orders, starts, sizes)``.
+    ``compute_dtype=torch.bfloat16`` joins on a bfloat16 copy of X and
+    reranks the final graph exactly in fp32. ``locality`` as in the JAX
+    package: None, "auto" (n >= 400k) or a dict."""
+    n, d = X.shape
+    k = n_neighbors
+    dev = X.device
+    if n_iters is None:
+        n_iters = max(5, int(round(np.log2(max(n, 2)))))
+    if max_candidates is None:
+        max_candidates = min(60, n_neighbors)
+    if hop2_new_samples is None:
+        hop2_new_samples = max_candidates
+    if hop2_old_samples is None:
+        hop2_old_samples = max(1, max_candidates // 2)
+    dist_rowwise = _resolve_rowwise_metric(metric)
+    if leaf_cap is None:
+        leaf_cap = 64
+    # bound the join's [b, P, d] candidate tile (the build's peak
+    # allocation) to ~1.5 GB, ~0.75 GB at n > 2^19 (JAX :939-950)
+    t_nn_est = max(1, (hop2_new_samples + 1) // 2)
+    t_no_est = max(0, hop2_new_samples - t_nn_est)
+    pool_w = 2 * max_candidates * (1 + t_nn_est + t_no_est + hop2_old_samples)
+    d_bytes = d * X.element_size()
+    tile_budget = 3 << 28 if n > (1 << 19) else (3 << 29)
+    block_rows = int(max(512, min(block_rows, tile_budget // max(pool_w * d_bytes, 1))))
+
+    if compute_dtype is not None and X.dtype == torch.float32:
+        X_join = X.to(compute_dtype)
+    else:
+        X_join, compute_dtype = X, None
+
+    state = make_neighbor_state(n, k, device=dev)
+
+    if forest is not None:
+        orders, starts, sizes = forest
+        if X_join.dtype == torch.float32 and metric in ik.KERNEL_METRICS:
+            state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=metric)
+        else:
+            T = int(orders.shape[0])
+            init_block = int(max(256, min(8192, (1 << 32) // max(T * leaf_cap * d_bytes, 1))))
+            state = init_from_forest(state, X_join, orders, starts, sizes, dist_rowwise,
+                                     leaf_cap=leaf_cap, block_rows=init_block)
+    rand_block = int(max(1024, min(65536, (1 << 30) // max((k + 1) * d_bytes, 1))))
+    state = init_random(state, X_join, rng.derive_seed(seed, rng.ROLE_DESCENT_INIT), n_extra=k,
+                        dist_rowwise=dist_rowwise, block_rows=rand_block)
+
+    stop_count = delta * k * n
+    join_kw = dict(max_candidates=max_candidates, dist_rowwise=dist_rowwise,
+                   block_rows=min(block_rows, n), hop2_new_samples=hop2_new_samples,
+                   hop2_old_samples=hop2_old_samples, verbose=verbose)
+
+    loc = _resolve_locality(locality, n, forest, n_iters)
+    if loc is not None:
+        (W, phases, phase_iters, global_iters, refresh_flags, sweep_win, sweep_m,
+         sweep_stagger) = loc
+        orders = forest[0]
+        T = int(orders.shape[0])
+        for ph in range(phases):
+            order = orders[ph % T]
+            state = _state_to_tree_order(state, order)
+            Xp = X_join[_long(order)].contiguous()
+            if sweep_win:
+                state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=metric)
+                if sweep_stagger:
+                    state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=metric,
+                                         offset=sweep_win // 2)
+            if phase_iters > 0:
+                state = descent_loop(
+                    state, Xp, rng.derive_seed(seed, rng.ROLE_DESCENT_LOCAL, ph), stop_count,
+                    n_iters=phase_iters, window_rows=W, **join_kw,
+                )
+            state = _state_from_tree_order(state, order)
+            del Xp
+            if verbose:
+                print(f"\tlocality phase {ph + 1} / {phases} (window {W}, tree {ph % T}"
+                      + (f", sweep {sweep_win}x{sweep_m}" if sweep_win else "") + ")")
+        n_iters = max(global_iters, 0)
+        if refresh_flags and n_iters > 0:
+            state = NeighborState(state.idx, state.dist, state.idx >= 0)
+
+    state = descent_loop(state, X_join, seed, stop_count, n_iters=n_iters, **join_kw)
+    idx, dist = sort_by_distance(state.idx, state.dist)
+    if compute_dtype is not None:
+        rb = max(1024, min(65536, (1 << 29) // max(k * d * 4, 1)))
+        idx, dist = exact_rerank_graph(X, idx, dist_rowwise=dist_rowwise, block_rows=rb)
+    return idx, dist
+
+
+def exact_rerank_graph(X, idx, *, dist_rowwise, block_rows: int = 65536):
+    """Recompute exact fp32 distances of the graph's pairs and re-sort each
+    row (the final step of the bfloat16-join mode, JAX :1173)."""
+    n = idx.shape[0]
+    b = min(block_rows, n)
+    oidx = torch.zeros_like(idx)
+    odist = torch.full(idx.shape, _INF, dtype=torch.float32, device=idx.device)
+    for s0 in block_starts(n, b):
+        bi = idx[s0:s0 + b]
+        d = dist_rowwise(X[s0:s0 + b], X[_long(torch.clamp(bi, min=0))])
+        d = torch.where(bi < 0, torch.full_like(d, _INF), d)
+        sd, pos = torch.sort(d, dim=-1, stable=True)
+        oidx[s0:s0 + b] = torch.gather(bi, -1, pos)
+        odist[s0:s0 + b] = sd
+    return oidx, odist

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pynndescent_torch``) on one CUDA GPU.
 
-    python3 chip_smoke.py            # one card
+    python3 chip_smoke.py                          # one card, every phase
+    python3 chip_smoke.py --phases setup,kernels   # build the kernels, phase 2 alone
 
 Phases, each printing its own line; any failure raises and the script exits
 non-zero:
 
 1. setup: card name and power limit, TF32 off, build the CUDA kernels;
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at ragged small ones, with both timings;
+   path's shapes and at small ones that cover every dispatch of the window
+   kernel, with its time beside the plain version's, its bound and a
+   library call's;
 3. 100k x 128 euclidean: build -> prepare -> query, recall@10;
 4. 100k x 100 cosine, the same;
 5. SIFT-1M-class 1M x 128 euclidean with the default ``locality="auto"``
@@ -23,6 +26,7 @@ JAX or scikit-learn.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -181,8 +185,8 @@ def phase_setup(torch, state):
     ptxas = cuda_build.library_path().with_suffix(".log")
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    ptxas: {line.strip()}")
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"    ptxas: {line.strip()[:160]}")
 
 
 def _forest_order(torch, X, leaf_size=60, seed=7):
@@ -200,7 +204,7 @@ def phase_kernels(torch, state):
 
     dev = torch.device("cuda")
     card = state["card"]
-    errs = {"leaf_allpairs": 0.0, "window_topm": 0.0}
+    errs = {"leaf_allpairs": 0.0, "window_topm": 0.0, "row_sqnorms": 0.0}
 
     # leaf_allpairs: the main path's shape (100k x 128 in tree order, cap 64)
     X = torch.from_numpy(make_data(100_000, 10, 128, seed=42)[0]).to(dev)
@@ -233,36 +237,195 @@ def phase_kernels(torch, state):
         f"d=100/784: max abs err {errs['leaf_allpairs']:.3g} | kernel {k_ms:.3f} ms, plain "
         f"{p_ms:.3f} ms | {card}")
 
-    # window_topm: win 1024, m 32 on 1M x 128 in tree order (n not a multiple of win)
+    state["leaf_bound_ms"], state["leaf_bound_by"] = leaf_bound(X_t, ls, lz)
+    log(f"[2 kernels] leaf_allpairs bound {state['leaf_bound_ms']:.4f} ms by "
+        f"{state['leaf_bound_by']} ({100 * state['leaf_bound_ms'] / k_ms:.1f}% reached); no "
+        f"single library call computes it")
+    del X, X_t
+    state["errs"] = errs
+    _check_window(torch, state, errs)
+    torch.cuda.empty_cache()
+
+
+# published peaks of one H100 SXM (NVIDIA's data sheet): fp32 outside the
+# tensor cores, and device memory
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def leaf_bound(X_t, leaf_starts, leaf_sizes):
+    """Least ms for this leaf table: X_t and the table read once, the [n, 64]
+    output written once, against d size (size - 1) FLOP per leaf: the
+    distances are symmetric, so size (size - 1) / 2 dot products of 2 d FLOP
+    give them all (size capped at the tile's 64 rows)."""
+    n, d = X_t.shape
+    sz = leaf_sizes.clamp(max=64).double()
+    flops = float(d * (sz * (sz - 1)).sum())
+    nbytes = X_t.numel() * X_t.element_size() + n * 64 * 4 + 2 * 4 * leaf_starts.numel()
+    return _bound(flops, nbytes)
+
+
+def window_rows(n, win, offset):
+    """Data rows that each window of a sweep really holds."""
+    edges = np.arange(0, n + offset + win, win) - offset
+    return np.diff(np.clip(edges, 0, n)).astype(np.float64)
+
+
+def window_bound(n, d, win, m, offset, itemsize):
+    """Least ms for one sweep. Every gram metric is symmetric, so a window of
+    `rows` rows needs rows (rows - 1) / 2 dot products of 2 d FLOP, over the
+    rows it really holds; against X_t read once and both [n, m] outputs
+    written once."""
+    rows = window_rows(n, win, offset)
+    return _bound(float(d * (rows * (rows - 1)).sum()), n * d * itemsize + 2 * n * m * 4)
+
+
+def window_full_square_ms(n, d, win, offset):
+    """ms of the fp32 pipes for the product the kernel really computes: every
+    window's full square, 2 d rows^2 FLOP, each pair from both sides."""
+    rows = window_rows(n, win, offset)
+    return 1e3 * float(2.0 * d * (rows * rows).sum()) / PEAK_FP32_FLOPS
+
+
+# small window cases covering the dispatch: (n, d, win, m, offset, dtype, metric)
+WINDOW_CASES = (
+    (5000, 25, 256, 1, 0, "float32", "sqeuclidean"),
+    (5000, 100, 256, 10, 128, "float32", "alternative_cosine"),
+    (4097, 128, 1024, 32, 512, "float32", "sqeuclidean"),
+    (3000, 784, 256, 32, 0, "float32", "euclidean"),
+    (5000, 128, 256, 33, 0, "float32", "sqeuclidean"),
+    (5000, 100, 1024, 64, 512, "float32", "sqeuclidean"),
+    (5000, 128, 192, 10, 0, "float32", "sqeuclidean"),
+    (5000, 128, 256, 10, 128, "float32", "inner_product"),
+    (200, 25, 256, 10, 0, "float32", "sqeuclidean"),
+    (700, 128, 1024, 32, 512, "float32", "sqeuclidean"),
+    (5000, 100, 256, 10, 0, "bfloat16", "sqeuclidean"),
+    (5000, 25, 256, 32, 128, "bfloat16", "sqeuclidean"),
+)
+
+
+def _check_window(torch, state, errs):
+    from pynndescent_torch.ops import init_kernels as ik
+
+    dev = torch.device("cuda")
+    card = state["card"]
+
+    def compare(Xc, win, m, metric, off):
+        gi, gd = ik.window_topm(Xc, win=win, m=m, metric=metric, offset=off)
+        torch.cuda.synchronize()
+        wi, wd = ik.window_topm_plain(Xc, win=win, m=m, metric=metric, offset=off)
+        torch.cuda.synchronize()
+        name = (f"window_topm[{metric}, {Xc.shape[0]}x{Xc.shape[1]}, {Xc.dtype}, win {win}, "
+                f"m {m}, offset {off}]")
+        Xf = Xc.float()
+        sq = float((Xf * Xf).sum(1).max())
+        errs["window_topm"] = max(errs["window_topm"], check_close(torch, name, gd, wd, sq))
+        return check_ids(torch, name, Xf, metric, gi, wi, wd, sq)
+
+    # small shapes: every dispatch of the wrapper, clustered rows
+    agree, n_diff = [], 0
+    for n_s, d, win, m, off, dtype, metric in WINDOW_CASES:
+        g = torch.Generator(dev).manual_seed(1000 * d + m)
+        centers = 4.0 * torch.randn(40, d, device=dev, generator=g)
+        Xs = centers[torch.randint(0, 40, (n_s,), device=dev, generator=g)]
+        Xs = (Xs + torch.randn(n_s, d, device=dev, generator=g)).to(getattr(torch, dtype))
+        a, nd = compare(Xs.contiguous(), win, m, metric, off)
+        agree.append(a)
+        n_diff += nd
+    # exact ties: small integers make every product and sum exact, so equal
+    # distances are equal bits and the ids must be the plain version's
+    Xi = torch.randint(-2, 3, (3000, 4), device=dev,
+                       generator=torch.Generator(dev).manual_seed(5)).float()
+    for win, m in ((1024, 32), (256, 10), (256, 40)):
+        gi, gd = ik.window_topm(Xi, win=win, m=m, metric="sqeuclidean", offset=win // 2)
+        wi, wd = ik.window_topm_plain(Xi, win=win, m=m, metric="sqeuclidean", offset=win // 2)
+        if not (torch.equal(gi, wi) and torch.equal(gd, wd)):
+            raise AssertionError(f"window_topm ties (win {win}, m {m}): {int((gi != wi).sum())} "
+                                 f"ids differ from the lowest-column order")
+    log(f"[2 kernels] window_topm {len(WINDOW_CASES)} small cases (win 192/256/1024, m 1-64, "
+        f"d 25-784, n < win, offsets, bf16) + exact ties: max abs err {errs['window_topm']:.3g}, "
+        f"id agreement min {min(agree):.6f} ({n_diff} differing ids, all near-ties)")
+
+    # the main path's shape: win 1024, m 32 on 1M x 128 in tree order (n not a multiple of win)
     Xw = torch.from_numpy(make_sift_like(1_000_000, 10)[0]).to(dev)
     order_w, _, _, _ = _forest_order(torch, Xw, seed=11)
     Xw_t = Xw[order_w].contiguous()
-    sqw = float((Xw * Xw).sum(1).max())
+    del Xw, order_w
     agree, n_diff = [], 0
     cases = [(Xw_t, "sqeuclidean", 0), (Xw_t, "sqeuclidean", 512),
              (Xw_t[:300_001].contiguous(), "alternative_cosine", 0),
              (Xw_t[:300_001].to(torch.bfloat16).contiguous(), "sqeuclidean", 512)]
     for Xc, metric, off in cases:
-        gi, gd = ik.window_topm(Xc, win=1024, m=32, metric=metric, offset=off)
-        torch.cuda.synchronize()
-        wi, wd = ik.window_topm_plain(Xc, win=1024, m=32, metric=metric, offset=off)
-        torch.cuda.synchronize()
-        name = f"window_topm[{metric}, n={Xc.shape[0]}, {Xc.dtype}, offset {off}]"
-        errs["window_topm"] = max(errs["window_topm"], check_close(torch, name, gd, wd, sqw))
-        a, nd = check_ids(torch, name, Xc, metric, gi, wi, wd, sqw)
+        a, nd = compare(Xc, 1024, 32, metric, off)
         agree.append(a)
         n_diff += nd
+    del cases, Xc
+    first = ik.window_topm(Xw_t, win=1024, m=32, metric="sqeuclidean")
+    second = ik.window_topm(Xw_t, win=1024, m=32, metric="sqeuclidean")
+    if not (torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])):
+        raise AssertionError("window_topm: two launches at the main path's shape differ")
+    del first, second
     k_ms, p_ms = timed_pair(
         torch, lambda: ik.window_topm(Xw_t, win=1024, m=32, metric="sqeuclidean"),
         lambda: ik.window_topm_plain(Xw_t, win=1024, m=32, metric="sqeuclidean"), reps=4)
     state["win_ms"], state["win_plain_ms"] = k_ms, p_ms
-    state["errs"] = errs
     log(f"[2 kernels] window_topm 1000000x128 win 1024 m 32, offsets 0/512, bf16, ragged n: "
         f"max abs err {errs['window_topm']:.3g}, id agreement min {min(agree):.6f} ({n_diff} "
-        f"differing ids, all near-ties) | kernel "
+        f"differing ids, all near-ties), two launches bit-identical | kernel "
         f"{k_ms:.3f} ms, plain {p_ms:.3f} ms | {card}")
-    del X, X_t, Xw, Xw_t
-    torch.cuda.empty_cache()
+
+    # the squared-norm pre-pass of the tiled kernel, alone
+    for Xn in (Xw_t, Xw_t[:5000].to(torch.bfloat16), Xw_t[:5000, :25].contiguous(),
+               Xw_t[:5000, :25].to(torch.bfloat16).contiguous()):
+        got, want = ik.row_sqnorms(Xn), ik.row_sqnorms_plain(Xn)
+        torch.cuda.synchronize()
+        if not bool(((got - want).abs() <= RTOL * want).all()):
+            raise AssertionError(f"row_sqnorms {tuple(Xn.shape)} {Xn.dtype}: max rel err "
+                                 f"{float(((got - want).abs() / want).max())}")
+        errs["row_sqnorms"] = max(errs["row_sqnorms"], float((got - want).abs().max()))
+    pre_ms, pre_plain_ms = timed_pair(torch, lambda: ik.row_sqnorms(Xw_t),
+                                      lambda: ik.row_sqnorms_plain(Xw_t), reps=10)
+    state["sq_ms"], state["sq_plain_ms"] = pre_ms, pre_plain_ms
+    state["sq_library_ms"] = cuda_ms(torch, lambda: torch.linalg.vecdot(Xw_t, Xw_t, dim=1), 10)
+    state["sq_bound_ms"], state["sq_bound_by"] = _bound(
+        2.0 * Xw_t.numel(), Xw_t.numel() * Xw_t.element_size() + 4 * Xw_t.shape[0])
+    log(f"[2 kernels] row_sqnorms {Xw_t.shape[0]}x{Xw_t.shape[1]} (pre-pass of the tiled window "
+        f"kernel): max abs err {errs['row_sqnorms']:.3g} | kernel {pre_ms:.3f} ms, plain "
+        f"{pre_plain_ms:.3f} ms, library torch.linalg.vecdot {state['sq_library_ms']:.3f} ms, "
+        f"bound {state['sq_bound_ms']:.3f} ms by {state['sq_bound_by']} | {card}")
+    log(f"[2 kernels] window_topm at the main path's shape: pre-pass row_sqnorms {pre_ms:.3f} ms, "
+        f"main kernel {k_ms - pre_ms:.3f} ms of {k_ms:.3f} ms")
+
+    n_w, d_w = Xw_t.shape
+    b_ms, b_by = window_bound(n_w, d_w, 1024, 32, 0, 4)
+    state["win_bound_ms"], state["win_bound_by"] = b_ms, b_by
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_note = ""
+    if clock and clock[0].strip().isdigit():
+        peak = sms * 128 * 2 * int(clock[0]) * 1e6  # 128 fp32 FMA lanes an SM
+        clock_note = (f"; at this card's {sms} SMs x {clock[0].strip()} MHz "
+                      f"({peak / 1e12:.1f} TFLOP/s) {b_ms * PEAK_FP32_FLOPS / peak:.3f} ms")
+    # the gram part alone as one library call (never called by the port)
+    pad = -(-n_w // 1024) * 1024
+    Xp = torch.zeros((pad, d_w), device=dev)
+    Xp[:n_w] = Xw_t
+    tiles = Xp.view(-1, 1024, d_w)
+    state["win_library_ms"] = cuda_ms(torch, lambda: torch.bmm(tiles, tiles.transpose(1, 2)), 2)
+    full_ms = window_full_square_ms(n_w, d_w, 1024, 0)
+    log(f"[2 kernels] window_topm bound {b_ms:.3f} ms by {b_by} (each pair of a window once; "
+        f"fp32 FMA peak {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s{clock_note}): "
+        f"{100 * b_ms / k_ms:.1f}% reached | the full square of every window, which this kernel "
+        f"computes: {full_ms:.3f} ms at that peak, {100 * full_ms / k_ms:.1f}% reached | library "
+        f"torch.bmm of the {tiles.shape[0]} windows, the gram part alone, full squares: "
+        f"{state['win_library_ms']:.3f} ms | {card}")
+    del Xp, tiles, Xw_t
 
 
 def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_recall, **kw):
@@ -306,7 +469,7 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
     if launches["leaf_allpairs"] < index.n_trees:
         raise AssertionError(f"{tag}: leaf_allpairs launched {launches['leaf_allpairs']} times "
                              f"for {index.n_trees} trees")
-    state.setdefault("path_launches", {"leaf_allpairs": 0, "window_topm": 0})
+    state.setdefault("path_launches", dict.fromkeys(launches, 0))
     for k, v in launches.items():
         state["path_launches"][k] += v
     del index
@@ -328,8 +491,9 @@ def phase_1m(torch, state):
     train, queries = make_sift_like(1_000_000, 10_000)
     launches = _build_and_query(torch, state, "5 1M euclidean", train, queries, "euclidean",
                                 0.25, True)
-    if launches["window_topm"] != 12:
-        raise AssertionError(f"window_topm launched {launches['window_topm']} times, expected 12")
+    for name in ("window_topm", "row_sqnorms"):  # the sweep's shape takes the tiled kernel
+        if launches[name] != 12:
+            raise AssertionError(f"{name} launched {launches[name]} times, expected 12")
 
 
 def phase_determinism(torch, state):
@@ -346,11 +510,18 @@ def phase_determinism(torch, state):
         raise AssertionError("two builds with the same seed differ")
 
 
-PHASES = (phase_setup, phase_kernels, phase_100k, phase_100k_cosine, phase_1m,
-          phase_determinism)
+PHASES = {"setup": phase_setup, "kernels": phase_kernels, "100k": phase_100k,
+          "100k_cosine": phase_100k_cosine, "1m": phase_1m, "determinism": phase_determinism}
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of %(default)s; setup always runs")
+    names = [p for p in parser.parse_args().phases.split(",") if p]
+    unknown = [p for p in names if p not in PHASES]
+    if unknown:
+        parser.error(f"unknown phases {unknown}; choose from {list(PHASES)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -362,21 +533,30 @@ def main():
     sys.path.insert(0, str(REPO))
     state = {}
     t_start = time.perf_counter()
-    for phase in PHASES:
-        phase(torch, state)
-    launches, errs = state["path_launches"], state["errs"]
-    kernels = [
-        {"name": "leaf_allpairs", "route": "cuda", "source": "pynndescent_torch/csrc/leaf_allpairs.cu",
-         "replaces": "pynndescent_tpu/ops/pallas_init.py:127",
-         "launches": launches["leaf_allpairs"], "max_abs_err": errs["leaf_allpairs"],
-         "ms": state["leaf_ms"], "plain_ms": state["leaf_plain_ms"]},
-        {"name": "window_topm", "route": "cuda", "source": "pynndescent_torch/csrc/window_topm.cu",
-         "replaces": "pynndescent_tpu/ops/pallas_init.py:248",
-         "launches": launches["window_topm"], "max_abs_err": errs["window_topm"],
-         "ms": state["win_ms"], "plain_ms": state["win_plain_ms"]},
-    ]
-    log(f"[done] {len(PHASES)} phases in {time.perf_counter() - t_start:.1f} s | {state['card']}")
-    print(json.dumps({"kernels": kernels}))
+    selected = [p for p in PHASES if p == "setup" or p in names]
+    for name in selected:
+        PHASES[name](torch, state)
+    log(f"[done] phases {','.join(selected)} in {time.perf_counter() - t_start:.1f} s | "
+        f"{state['card']}")
+    if "kernels" in selected:
+        # null: no build ran in this call, so no launch was counted
+        launches = state.get("path_launches")
+        errs = state["errs"]
+        src = "pynndescent_torch/csrc/"
+        kernels = [
+            {"name": name, "route": "cuda", "source": src + source,
+             "replaces": "pynndescent_tpu/ops/pallas_init.py:" + line,
+             "launches": launches[name] if launches is not None else None,
+             "max_abs_err": errs[name], "ms": state[key + "_ms"],
+             "plain_ms": state[key + "_plain_ms"], "bound_ms": state[key + "_bound_ms"],
+             "bound_by": state[key + "_bound_by"], "library_ms": state.get(key + "_library_ms")}
+            for name, key, source, line in (
+                ("leaf_allpairs", "leaf", "leaf_allpairs.cu", "127"),
+                ("window_topm", "win", "window_topm.cu", "248"),
+                # the squared norms of _tile_distances, a kernel of their own here
+                ("row_sqnorms", "sq", "window_topm.cu", "248"))
+        ]
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -7,7 +7,9 @@ plain PyTorch version beside it:
 * ``leaf_allpairs`` — per RP-tree leaf, the gram-form distance tile of its
   contiguous tree-order slab (csrc/leaf_allpairs.cu);
 * ``window_topm`` — exact per-row top-m inside contiguous windows of the
-  tree-ordered data (csrc/window_topm.cu).
+  tree-ordered data (csrc/window_topm.cu: a register-tiled kernel with its
+  ``row_sqnorms`` pre-pass for the sweep's shapes, a general kernel for the
+  rest).
 
 A wrapper runs the plain version for a tensor on the CPU, and only then. For
 a CUDA tensor it launches the kernel or raises; nothing falls back. Each
@@ -40,7 +42,7 @@ LEAF_CAP = 64  # rows of a leaf tile (the leaf kernel's only width)
 _PLAIN_LEAVES_PER_CHUNK = 4096
 _PLAIN_WINDOW_TILE_ELEMS = 1 << 26
 
-LAUNCHES = {"leaf_allpairs": 0, "window_topm": 0}
+LAUNCHES = {"leaf_allpairs": 0, "window_topm": 0, "row_sqnorms": 0}
 
 
 def reset_launch_counts():
@@ -192,6 +194,45 @@ def window_topm_plain(X_t, *, win: int, m: int, metric: str, offset: int = 0):
     return ids_all[offset:offset + n], d_all[offset:offset + n]
 
 
+# the tiled window kernel's shapes: a list of at most 32 entries a row (one a
+# lane of a warp), column tiles of 128
+WINDOW_TILED_MAX_M = 32
+WINDOW_TILED_WIN_STEP = 128
+
+
+def window_kernel_path(win: int, m: int) -> str:
+    """Which kernel of csrc/window_topm.cu a CUDA tensor takes: "tiled" or
+    "general" (``m`` already clamped to ``win - 1``)."""
+    tiled = m <= WINDOW_TILED_MAX_M and win % WINDOW_TILED_WIN_STEP == 0
+    return "tiled" if tiled else "general"
+
+
+def row_sqnorms_plain(X_t):
+    """Plain PyTorch squared row norms, fp32 sums of the rows' own values."""
+    X = X_t.to(torch.float32)
+    return torch.sum(X * X, dim=-1)
+
+
+def row_sqnorms(X_t):
+    """Squared norms f32[n] of the rows of X_t [n, d] (f32 or bf16, read as
+    stored and summed in fp32): the pre-pass of the tiled window kernel, a
+    kernel of csrc/window_topm.cu, counted as ``LAUNCHES["row_sqnorms"]``."""
+    if X_t.device.type == "cpu":
+        return row_sqnorms_plain(X_t)
+    from pynndescent_torch.utils import cuda_build
+
+    if X_t.dtype not in (torch.float32, torch.bfloat16) or not X_t.is_contiguous() or X_t.dim() != 2:
+        raise ValueError("row_sqnorms kernel needs contiguous 2-D float32 or bfloat16 X_t")
+    n, d = X_t.shape
+    lib = cuda_build.load_library()
+    sq = torch.empty((n,), dtype=torch.float32, device=X_t.device)
+    err = lib.pynnd_row_sqnorms(X_t.data_ptr(), int(X_t.dtype == torch.bfloat16), n, d,
+                                sq.data_ptr(), cuda_build.stream_handle(X_t.device))
+    cuda_build.check(err, "row_sqnorms")
+    LAUNCHES["row_sqnorms"] += 1
+    return sq
+
+
 def window_topm(X_t, *, win: int, m: int, metric: str, offset: int = 0):
     """Exact top-m neighbors within fixed contiguous ``win``-row windows.
 
@@ -200,12 +241,23 @@ def window_topm(X_t, *, win: int, m: int, metric: str, offset: int = 0):
     entries are (-1, +inf). ``offset`` staggers the window boundaries by
     conceptually prepending ``offset`` zero rows. ``m`` is clamped to
     ``win - 1``.
+
+    On a CUDA tensor one of two hand-written kernels of csrc/window_topm.cu
+    runs, with the same result: the register-tiled kernel (after the
+    ``row_sqnorms`` pre-pass) when ``m <= 32`` and ``win`` is a multiple of
+    128, which is every shape the NN-descent sweep uses; the general kernel
+    for every other legal shape (``m`` up to ``win - 1``, ``win`` a multiple
+    of 64). Either counts as one launch of ``window_topm``.
     """
     _metric_id(metric)
     if win <= 0 or win % 64:
         raise ValueError(f"win must be a positive multiple of 64, got {win}")
     if offset and not 0 < offset < win:
         raise ValueError(f"offset must be in [0, win), got {offset}")
+    if m < 1:
+        raise ValueError(f"m must be at least 1, got {m}")
+    if X_t.dim() != 2:
+        raise ValueError(f"X_t must be 2-D [n, d], got {X_t.dim()}-D")
     m = min(m, win - 1)
     if X_t.device.type == "cpu":
         return window_topm_plain(X_t, win=win, m=m, metric=metric, offset=offset)
@@ -215,11 +267,13 @@ def window_topm(X_t, *, win: int, m: int, metric: str, offset: int = 0):
         raise ValueError("window_topm kernel needs contiguous float32 or bfloat16 X_t")
     n, d = X_t.shape
     lib = cuda_build.load_library()
+    tiled = window_kernel_path(win, m) == "tiled"
+    sq = row_sqnorms(X_t) if tiled else None
     ids = torch.empty((n, m), dtype=torch.int32, device=X_t.device)
     dists = torch.empty((n, m), dtype=torch.float32, device=X_t.device)
     err = lib.pynnd_window_topm(
         X_t.data_ptr(), int(X_t.dtype == torch.bfloat16), n, d, win, m, offset,
-        _metric_id(metric), ids.data_ptr(), dists.data_ptr(),
+        _metric_id(metric), sq.data_ptr() if tiled else None, ids.data_ptr(), dists.data_ptr(),
         cuda_build.stream_handle(X_t.device),
     )
     cuda_build.check(err, "window_topm")

@@ -30,8 +30,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # X, starts, sizes, n_leaves, n, d, cap, metric, out, stream
     "pynnd_leaf_allpairs": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # X, is_bf16, n, d, win, m, offset, metric, ids, dists, stream
-    "pynnd_window_topm": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # X, is_bf16, n, d, sq, stream
+    "pynnd_row_sqnorms": [_P, _I, _I, _I, _P, _P],
+    # X, is_bf16, n, d, win, m, offset, metric, sq (or null), ids, dists, stream
+    "pynnd_window_topm": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None

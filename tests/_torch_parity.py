@@ -56,6 +56,25 @@ def recall(found, truth):
     return float(np.mean([len(np.intersect1d(found[i, :k], truth[i])) for i in range(len(truth))]) / k)
 
 
+def window_ties_case():
+    """Small-integer rows (every product and sum exact, so equal distances
+    are equal bits) with one vector repeated at columns on both sides of a
+    64- and of a 128-column boundary, and the exact oracle: a stable sort of
+    the integer distances, so ties go to the lowest column."""
+    n_pts, win = 512, 256
+    X = np.random.RandomState(12).randint(-3, 4, (n_pts, 6)).astype(np.float32)
+    dup = np.array([60, 63, 64, 70, 126, 127, 128, 130])
+    X[dup] = X[dup[0]]
+    X[dup + win] = X[dup[0]]
+    want = np.empty((n_pts, n_pts - 1 if n_pts < win else win - 1), np.int64)
+    for s in range(0, n_pts, win):
+        Xi = X[s:s + win].astype(np.int64)
+        D = ((Xi[:, None] - Xi[None]) ** 2).sum(-1)
+        np.fill_diagonal(D, np.iinfo(np.int64).max)
+        want[s:s + win] = np.argsort(D, axis=1, kind="stable")[:, :win - 1] + s
+    return X, win, dup, want
+
+
 @pytest.fixture
 def cuda_device():
     """torch.device('cuda'), or skip when there is no CUDA device."""

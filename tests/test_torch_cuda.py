@@ -18,7 +18,8 @@ import torch
 from pynndescent_torch import NNDescent
 from pynndescent_torch.ops import init_kernels as ik
 from pynndescent_torch.ops import rp_trees as tr
-from _torch_parity import clustered, cuda_device, exact_knn, n, recall, t  # noqa: F401
+from _torch_parity import (clustered, cuda_device, exact_knn, n, recall, t,  # noqa: F401
+                           window_ties_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +66,73 @@ def test_window_topm_kernel_ties_take_lowest_column(cuda_device):
     assert (n(dists) == 0).all()
 
 
+# every dispatch of the wrapper (tiled kernel: m <= 32 and win a multiple of
+# 128; general kernel: the rest), ragged d, n < win, offsets, bf16:
+# (n_pts, d, win, m, offset, dtype)
+WINDOW_KERNEL_CASES = [
+    (700, 25, 256, 1, 0, torch.float32),
+    (700, 16, 256, 32, 128, torch.float32),
+    (700, 16, 256, 33, 0, torch.float32),
+    (1100, 25, 512, 32, 256, torch.float32),
+    (1100, 16, 512, 33, 0, torch.float32),
+    (2500, 24, 1024, 32, 512, torch.float32),
+    (2500, 24, 1024, 64, 0, torch.float32),
+    (700, 24, 192, 10, 0, torch.float32),
+    (200, 25, 256, 10, 0, torch.float32),
+    (300, 16, 512, 32, 256, torch.float32),
+    (700, 25, 256, 32, 128, torch.bfloat16),
+    (700, 16, 256, 40, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("n_pts,d,win,m,offset,dtype", WINDOW_KERNEL_CASES)
+def test_window_topm_kernel_dispatch_shapes_match_plain(cuda_device, n_pts, d, win, m, offset,
+                                                        dtype):
+    X = t(np.random.RandomState(n_pts + d + m).randn(n_pts, d).astype(np.float32))
+    X = X.to(cuda_device, dtype)
+    ik.reset_launch_counts()
+    gi, gd = ik.window_topm(X, win=win, m=m, metric="sqeuclidean", offset=offset)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["window_topm"] == 1
+    # the tiled kernel's pre-pass runs once, the general kernel needs none
+    assert ik.LAUNCHES["row_sqnorms"] == (ik.window_kernel_path(win, min(m, win - 1)) == "tiled")
+    wi, wd = ik.window_topm_plain(X, win=win, m=m, metric="sqeuclidean", offset=offset)
+    np.testing.assert_allclose(n(gd), n(wd), rtol=1e-4, atol=1e-4)
+    assert (n(gi) == n(wi)).mean() > 0.999
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "alternative_cosine", "inner_product", "cosine"])
+def test_window_topm_tiled_kernel_metrics_match_plain(cuda_device, metric):
+    X = t(np.random.RandomState(9).randn(700, 12).astype(np.float32)).to(cuda_device)
+    gi, gd = ik.window_topm(X, win=256, m=10, metric=metric)
+    wi, wd = ik.window_topm_plain(X, win=256, m=10, metric=metric)
+    np.testing.assert_allclose(n(gd), n(wd), rtol=1e-4, atol=1e-4)
+    assert (n(gi) == n(wi)).mean() > 0.999
+
+
+@pytest.mark.parametrize("m", [12, 40])
+def test_window_topm_kernel_ties_across_tile_boundaries(cuda_device, m):
+    """Exact integer distances: both kernels must give the oracle's ids, ties
+    to the lowest column, also where equal distances straddle a 64- or a
+    128-column boundary; two launches give the same bits."""
+    X, win, dup, want = window_ties_case()
+    Xc = t(X).to(cuda_device)
+    ids, dists = ik.window_topm(Xc, win=win, m=m, metric="sqeuclidean")
+    np.testing.assert_array_equal(n(ids), want[:, :m])
+    for r in dup:
+        np.testing.assert_array_equal(n(ids)[r, :7], [c for c in dup if c != r])
+        assert (n(dists)[r, :7] == 0).all()
+    again = ik.window_topm(Xc, win=win, m=m, metric="sqeuclidean")
+    assert torch.equal(ids, again[0]) and torch.equal(dists, again[1])
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.bfloat16, 16),
+                                     (torch.float32, 25), (torch.bfloat16, 25)])
+def test_row_sqnorms_kernel_matches_plain(cuda_device, dtype, d):
+    X = t(np.random.RandomState(4).randn(1000, d).astype(np.float32)).to(cuda_device, dtype)
+    np.testing.assert_allclose(n(ik.row_sqnorms(X)), n(ik.row_sqnorms_plain(X)), rtol=1e-5)
+
+
 def test_kernel_wrappers_reject_bad_input(cuda_device):
     X = torch.zeros((300, 8), device=cuda_device)
     starts = torch.tensor([0], dtype=torch.int32, device=cuda_device)
@@ -74,6 +142,10 @@ def test_kernel_wrappers_reject_bad_input(cuda_device):
         ik.leaf_allpairs(X, starts.long(), starts, metric="sqeuclidean")
     with pytest.raises(ValueError, match="contiguous"):
         ik.window_topm(X.t(), win=256, m=4, metric="sqeuclidean")
+    with pytest.raises(ValueError, match="m must be at least 1"):
+        ik.window_topm(X, win=256, m=0, metric="sqeuclidean")
+    with pytest.raises(ValueError, match="2-D"):
+        ik.row_sqnorms(X[0])
 
 
 def test_slice_on_the_card_matches_cpu(cuda_device):

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 from pynndescent_tpu.ops import pallas_init as pi
 from pynndescent_tpu.ops import rp_trees as jr
 from pynndescent_torch.ops import init_kernels as ik
-from _torch_parity import n, t
+from _torch_parity import n, t, window_ties_case
 
 
 @pytest.fixture(scope="module")
@@ -115,13 +115,74 @@ def test_window_topm_ties_take_lowest_column():
     assert (n(dists) == 0).all()
 
 
+# The shapes the CUDA wrapper tells apart (m <= 32 and win a multiple of 128
+# take the tiled kernel, the rest the general one), ragged d, and n < win:
+# (n_pts, d, win, m, offset). Tolerances as in _compare_window: rtol/atol 1e-4
+# on the distances, more than 99.9% of the ids equal.
+WINDOW_DISPATCH_CASES = [
+    (700, 25, 256, 1, 0),
+    (700, 16, 256, 32, 128),
+    (700, 16, 256, 33, 0),
+    (1100, 25, 512, 32, 256),
+    (1100, 16, 512, 33, 0),
+    (200, 25, 256, 10, 0),
+    (300, 16, 512, 32, 256),
+]
+
+
+@pytest.mark.parametrize("n_pts,d,win,m,offset", WINDOW_DISPATCH_CASES)
+def test_window_topm_dispatch_shapes_match_pallas(n_pts, d, win, m, offset):
+    X = np.random.RandomState(n_pts + d + m).randn(n_pts, d).astype(np.float32)
+    ti, td = _compare_window(X, win, m, "sqeuclidean", offset)
+    assert ti.shape == td.shape == (n_pts, m)
+    if n_pts < win and not offset:  # one window: every row sees all the others
+        assert ((ti >= 0).sum(1) == min(m, n_pts - 1)).all()
+
+
+@pytest.mark.parametrize("win,m,expected", [
+    (256, 32, "tiled"), (1024, 1, "tiled"), (512, 33, "general"), (192, 10, "general"),
+    (320, 32, "general"), (384, 32, "tiled"),
+])
+def test_window_kernel_path(win, m, expected):
+    assert ik.window_kernel_path(win, m) == expected
+
+
+@pytest.mark.parametrize("m", [12, 40])
+def test_window_topm_ties_across_tile_boundaries(m):
+    X, win, dup, want = window_ties_case()
+    ids, dists = ik.window_topm(t(X), win=win, m=m, metric="sqeuclidean")
+    ids, dists = n(ids), n(dists)
+    np.testing.assert_array_equal(ids, want[:, :m])
+    # the repeated vector: its copies first, ascending by column, at distance 0
+    for w in (0, win):
+        for r in dup + w:
+            others = [c for c in dup + w if c != r]
+            np.testing.assert_array_equal(ids[r, :7], others)
+            assert (dists[r, :7] == 0).all()
+    ji, jd = pi.window_topm(jnp.asarray(X), win=win, m=m, metric="sqeuclidean", use_pallas=True,
+                            interpret=True)
+    np.testing.assert_array_equal(ids, n(ji))
+    np.testing.assert_array_equal(dists, n(jd))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.bfloat16, 16),
+                                     (torch.float32, 25)])
+def test_row_sqnorms_cpu_is_fp32_sum_of_squares(dtype, d):
+    X = t(np.random.RandomState(4).randn(50, d).astype(np.float32)).to(dtype)
+    sq = ik.row_sqnorms(X)
+    assert sq.dtype == torch.float32 and sq.shape == (50,)
+    want = (n(X.float()).astype(np.float64) ** 2).sum(1)
+    np.testing.assert_allclose(n(sq), want, rtol=1e-6)
+
+
 def test_cpu_wrappers_run_plain_and_do_not_count():
     ik.reset_launch_counts()
     X = t(np.random.RandomState(2).randn(300, 8).astype(np.float32))
     ik.window_topm(X, win=256, m=4, metric="sqeuclidean")
     ik.leaf_allpairs(X, torch.tensor([0], dtype=torch.int32), torch.tensor([60], dtype=torch.int32),
                      metric="sqeuclidean")
-    assert ik.LAUNCHES == {"leaf_allpairs": 0, "window_topm": 0}
+    ik.row_sqnorms(X)
+    assert ik.LAUNCHES == {"leaf_allpairs": 0, "window_topm": 0, "row_sqnorms": 0}
 
 
 def test_wrappers_validate_arguments():
@@ -130,6 +191,10 @@ def test_wrappers_validate_arguments():
         ik.window_topm(X, win=100, m=4, metric="sqeuclidean")
     with pytest.raises(ValueError, match="offset"):
         ik.window_topm(X, win=256, m=4, metric="sqeuclidean", offset=300)
+    with pytest.raises(ValueError, match="m must be at least 1"):
+        ik.window_topm(X, win=256, m=0, metric="sqeuclidean")
+    with pytest.raises(ValueError, match="2-D"):
+        ik.window_topm(X[0], win=256, m=4, metric="sqeuclidean")
     with pytest.raises(ValueError, match="unsupported kernel metric"):
         ik.leaf_allpairs(X, torch.tensor([0], dtype=torch.int32),
                          torch.tensor([60], dtype=torch.int32), metric="manhattan")

@@ -9,9 +9,11 @@ non-zero:
 
 1. setup: card name and power limit, TF32 off, build the CUDA kernels;
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at small ones that cover every dispatch of the window
-   kernel, with its time beside the plain version's, its bound and a
-   library call's;
+   path's shapes and at small ones (a hand-made leaf table of sizes 1 to 200
+   at d = 128, 100, 3 and 784; every dispatch of the window kernel), with its
+   time beside the plain version's, its bound and a library call's; the leaf
+   kernel must also write every element, mirror each leaf's block exactly
+   and give the same bits twice;
 3. 100k x 128 euclidean: build -> prepare -> query, recall@10;
 4. 100k x 100 cosine, the same;
 5. SIFT-1M-class 1M x 128 euclidean with the default ``locality="auto"``
@@ -189,36 +191,108 @@ def phase_setup(torch, state):
                 log(f"    ptxas: {line.strip()[:160]}")
 
 
-def _forest_order(torch, X, leaf_size=60, seed=7):
+def _forest_order(torch, X, leaf_size=60, seed=7, angular=False):
     from pynndescent_torch.ops import init_kernels as ik, rp_trees
 
     n = X.shape[0]
     orders, starts, sizes = rp_trees.build_forest_orders(
-        X.to(torch.bfloat16), [seed], leaf_size, rp_trees.forest_depth(n, leaf_size))
+        X.to(torch.bfloat16), [seed], leaf_size, rp_trees.forest_depth(n, leaf_size), angular)
     ls, lz = ik.leaf_tables_from_orders(starts, sizes, n)
     return orders[0].long(), ls[0].contiguous(), lz[0].contiguous(), starts[0]
 
 
-def phase_kernels(torch, state):
+# a hand-made leaf table: one row, sizes around the 4-row register tile and
+# the 64-row cap, an oversized leaf, a last leaf that ends at n, two padding
+# entries
+HANDMADE_LEAF_SIZES = (1, 2, 7, 8, 9, 63, 64, 65, 200, 33)
+
+
+def handmade_leaf_table(torch, dev):
+    sizes = torch.tensor(HANDMADE_LEAF_SIZES, dtype=torch.int32, device=dev)
+    n = int(sizes.sum())
+    starts = (torch.cumsum(sizes, 0) - sizes).to(torch.int32)
+    pad = torch.zeros(2, dtype=torch.int32, device=dev)
+    return n, torch.cat([starts, pad + n]).contiguous(), torch.cat([sizes, pad]).contiguous()
+
+
+def leaf_into(out, X_t, ls, lz, metric):
+    """One launch of the leaf kernel into a buffer the caller filled (the
+    wrapper allocates its own, uninitialised). Not counted as a launch."""
+    from pynndescent_torch.ops import init_kernels as ik
+    from pynndescent_torch.utils import cuda_build
+
+    lib = cuda_build.load_library()
+    err = lib.pynnd_leaf_allpairs(
+        X_t.data_ptr(), ls.data_ptr(), lz.data_ptr(), ls.shape[0], X_t.shape[0], X_t.shape[1],
+        ik.KERNEL_METRICS.index(metric), out.data_ptr(), cuda_build.stream_handle(X_t.device))
+    cuda_build.check(err, "leaf_allpairs")
+
+
+def check_leaf_invariants(torch, name, X_t, ls, lz, metric):
+    """What the leaf kernel owes beyond agreeing with the plain version: the
+    table covers every tree position exactly once; a launch into a buffer of
+    NaN leaves none (every element is written, none is computed as NaN); a
+    second launch gives the same bits; inside a leaf's block D equals its
+    transpose exactly."""
+    from pynndescent_torch.ops import init_kernels as ik
+
+    n = X_t.shape[0]
+    real = lz > 0
+    sz, st = lz[real].long(), ls[real].long()
+    if int(sz.sum()) != n or not torch.equal(st, torch.cumsum(sz, 0) - sz):
+        raise AssertionError(f"{name}: the leaf table does not cover each position once")
+    out = torch.full((n, ik.LEAF_CAP), float("nan"), device=X_t.device)
+    leaf_into(out, X_t, ls, lz, metric)
+    again = ik.leaf_allpairs(X_t, ls, lz, metric=metric)
+    torch.cuda.synchronize()
+    left = int(torch.isnan(out).sum())
+    if left:
+        raise AssertionError(f"{name}: {left} elements of a NaN-filled output are still NaN")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two launches differ in {int((out != again).sum())} elements")
+    start = torch.repeat_interleave(st, sz)  # leaf start and size of every position
+    size = torch.repeat_interleave(sz, sz).clamp(max=ik.LEAF_CAP)
+    off = torch.arange(n, device=X_t.device) - start
+    col = torch.arange(ik.LEAF_CAP, device=X_t.device)
+    inside = (off < ik.LEAF_CAP)[:, None] & (col[None, :] < size[:, None])
+    mirror = out[(start[:, None] + col[None, :]).clamp(max=n - 1), off.clamp(max=ik.LEAF_CAP - 1)[:, None]]
+    if not torch.equal(out[inside], mirror[inside]):
+        raise AssertionError(f"{name}: {int((out[inside] != mirror[inside]).sum())} entries differ "
+                             f"from their mirror image")
+    if not bool(torch.isinf(out[~inside]).all()):
+        raise AssertionError(f"{name}: an entry outside the leaves' blocks is not +inf")
+
+
+def _check_leaf(torch, state, errs, Xw_t, lsw, lzw):
+    """leaf_allpairs: small hand-made cases first, then the main path's three
+    shapes (100k x 128, 100k x 100 in angular tree order, and the 1M x 128
+    tree the caller built), each timed beside its plain version and bound."""
     from pynndescent_torch.ops import init_kernels as ik
 
     dev = torch.device("cuda")
     card = state["card"]
-    errs = {"leaf_allpairs": 0.0, "window_topm": 0.0, "row_sqnorms": 0.0}
 
-    # leaf_allpairs: the main path's shape (100k x 128 in tree order, cap 64)
-    X = torch.from_numpy(make_data(100_000, 10, 128, seed=42)[0]).to(dev)
-    order, ls, lz, _ = _forest_order(torch, X)
-    X_t = X[order].contiguous()
-    sq = float((X * X).sum(1).max())
-    for metric in ik.KERNEL_METRICS:
-        got = ik.leaf_allpairs(X_t, ls, lz, metric=metric)
-        torch.cuda.synchronize()
-        want = ik.leaf_allpairs_plain(X_t, ls, lz, metric=metric)
-        torch.cuda.synchronize()
-        errs["leaf_allpairs"] = max(errs["leaf_allpairs"],
-                                    check_close(torch, f"leaf_allpairs[{metric}]", got, want, sq))
-    # ragged small cases: odd n, d = 100 and d = 784 (wider than one tile)
+    n_h, ls_h, lz_h = handmade_leaf_table(torch, dev)
+    for d, metrics in ((128, ("sqeuclidean", "cosine")), (100, ("euclidean", "alternative_cosine")),
+                       (3, ("sqeuclidean", "alternative_dot")), (784, ("l2", "inner_product"))):
+        flat = torch.randn(n_h * d + 1, device=dev, generator=torch.Generator(dev).manual_seed(d))
+        # the second view starts 4 bytes off a 16-byte boundary: the 4-byte copies' path
+        for Xh in (flat[:-1].view(n_h, d), flat[1:].view(n_h, d)):
+            Xh[3] = 0.0  # a zero row exercises the cosine-family conventions
+            for metric in metrics:
+                name = f"leaf_allpairs[{metric}, hand-made {n_h}x{d}, ptr % 16 = {Xh.data_ptr() % 16}]"
+                got = ik.leaf_allpairs(Xh, ls_h, lz_h, metric=metric)
+                torch.cuda.synchronize()
+                want = ik.leaf_allpairs_plain(Xh, ls_h, lz_h, metric=metric)
+                errs["leaf_allpairs"] = max(errs["leaf_allpairs"], check_close(
+                    torch, name, got, want, float((Xh * Xh).sum(1).max())))
+                check_leaf_invariants(torch, name, Xh, ls_h, lz_h, metric)
+    log(f"[2 kernels] leaf_allpairs hand-made table (sizes {HANDMADE_LEAF_SIZES}, padding entries) "
+        f"at d = 128, 100, 3, 784, aligned and not, two metrics each: max abs err "
+        f"{errs['leaf_allpairs']:.3g}; no NaN left in a NaN-filled output, blocks equal their "
+        f"transpose exactly, two launches bit-identical")
+
+    # ragged small trees: odd n, d = 100 and d = 784 (wider than one slab)
     for n_small, d in ((3001, 100), (2003, 784)):
         Xs = torch.randn(n_small, d, device=dev, generator=torch.Generator(dev).manual_seed(d))
         o, l1, l2, _ = _forest_order(torch, Xs)
@@ -229,21 +303,61 @@ def phase_kernels(torch, state):
             want = ik.leaf_allpairs_plain(Xs_t, l1, l2, metric=metric)
             check_close(torch, f"leaf_allpairs[{metric}, {n_small}x{d}]", got, want,
                         float((Xs * Xs).sum(1).max()))
-    k_ms, p_ms = timed_pair(
-        torch, lambda: ik.leaf_allpairs(X_t, ls, lz, metric="sqeuclidean"),
-        lambda: ik.leaf_allpairs_plain(X_t, ls, lz, metric="sqeuclidean"), reps=20)
-    state["leaf_ms"], state["leaf_plain_ms"] = k_ms, p_ms
-    log(f"[2 kernels] leaf_allpairs 100000x128 cap 64 ({ls.shape[0]} leaves), 9 metrics + ragged "
-        f"d=100/784: max abs err {errs['leaf_allpairs']:.3g} | kernel {k_ms:.3f} ms, plain "
-        f"{p_ms:.3f} ms | {card}")
 
-    state["leaf_bound_ms"], state["leaf_bound_by"] = leaf_bound(X_t, ls, lz)
-    log(f"[2 kernels] leaf_allpairs bound {state['leaf_bound_ms']:.4f} ms by "
-        f"{state['leaf_bound_by']} ({100 * state['leaf_bound_ms'] / k_ms:.1f}% reached); no "
-        f"single library call computes it")
-    del X, X_t
+    # the main path's shapes: (tag, X_t, table, metrics compared, timed metric)
+    X = torch.from_numpy(make_data(100_000, 10, 128, seed=42)[0]).to(dev)
+    order, ls, lz, _ = _forest_order(torch, X)
+    Xc = torch.from_numpy(make_data(100_000, 10, 100, seed=44)[0]).to(dev)
+    order_c, lsc, lzc, _ = _forest_order(torch, Xc, angular=True)
+    shapes = (
+        ("100000x128", X[order].contiguous(), ls, lz, ik.KERNEL_METRICS, "sqeuclidean"),
+        ("100000x100", Xc[order_c].contiguous(), lsc, lzc, ("alternative_cosine",),
+         "alternative_cosine"),
+        ("1000000x128", Xw_t, lsw, lzw, ("sqeuclidean",), "sqeuclidean"),
+    )
+    del X, Xc
+    state["leaf_shapes"] = []
+    for tag, X_t, l1, l2, metrics, timed in shapes:
+        sq = float((X_t * X_t).sum(1).max())
+        for metric in metrics:
+            got = ik.leaf_allpairs(X_t, l1, l2, metric=metric)
+            torch.cuda.synchronize()
+            want = ik.leaf_allpairs_plain(X_t, l1, l2, metric=metric)
+            torch.cuda.synchronize()
+            errs["leaf_allpairs"] = max(errs["leaf_allpairs"], check_close(
+                torch, f"leaf_allpairs[{metric}, {tag}]", got, want, sq))
+            del got, want
+        check_leaf_invariants(torch, f"leaf_allpairs[{timed}, {tag}]", X_t, l1, l2, timed)
+        k_ms, p_ms = timed_pair(
+            torch, lambda: ik.leaf_allpairs(X_t, l1, l2, metric=timed),
+            lambda: ik.leaf_allpairs_plain(X_t, l1, l2, metric=timed), reps=20)
+        b_ms, b_by = leaf_bound(X_t, l1, l2)
+        n_leaves = int((l2 > 0).sum())
+        state["leaf_shapes"].append({"shape": tag, "leaves": n_leaves, "metric": timed, "ms": k_ms,
+                                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[2 kernels] leaf_allpairs {tag} cap 64 ({n_leaves} leaves, largest "
+            f"{int(l2.max())}), {len(metrics)} metric(s): max abs err {errs['leaf_allpairs']:.3g}; "
+            f"every element written, blocks symmetric, two launches bit-identical | kernel "
+            f"{k_ms:.4f} ms ({timed}, wrapper included), plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by} ({100 * b_ms / k_ms:.1f}% reached); no single library call computes it "
+            f"| {card}")
+    first = state["leaf_shapes"][0]  # the 100k x 128 tree is the kernels line's entry
+    state["leaf_ms"], state["leaf_plain_ms"] = first["ms"], first["plain_ms"]
+    state["leaf_bound_ms"], state["leaf_bound_by"] = first["bound_ms"], first["bound_by"]
+
+
+def phase_kernels(torch, state):
+    dev = torch.device("cuda")
+    errs = {"leaf_allpairs": 0.0, "window_topm": 0.0, "row_sqnorms": 0.0}
+    # the 1M x 128 tree order serves the leaf kernel's third shape and the window kernel
+    Xw = torch.from_numpy(make_sift_like(1_000_000, 10)[0]).to(dev)
+    order_w, lsw, lzw, _ = _forest_order(torch, Xw, seed=11)
+    Xw_t = Xw[order_w].contiguous()
+    del Xw, order_w
+    _check_leaf(torch, state, errs, Xw_t, lsw, lzw)
     state["errs"] = errs
-    _check_window(torch, state, errs)
+    torch.cuda.empty_cache()
+    _check_window(torch, state, errs, Xw_t)
     torch.cuda.empty_cache()
 
 
@@ -309,7 +423,7 @@ WINDOW_CASES = (
 )
 
 
-def _check_window(torch, state, errs):
+def _check_window(torch, state, errs, Xw_t):
     from pynndescent_torch.ops import init_kernels as ik
 
     dev = torch.device("cuda")
@@ -352,10 +466,6 @@ def _check_window(torch, state, errs):
         f"id agreement min {min(agree):.6f} ({n_diff} differing ids, all near-ties)")
 
     # the main path's shape: win 1024, m 32 on 1M x 128 in tree order (n not a multiple of win)
-    Xw = torch.from_numpy(make_sift_like(1_000_000, 10)[0]).to(dev)
-    order_w, _, _, _ = _forest_order(torch, Xw, seed=11)
-    Xw_t = Xw[order_w].contiguous()
-    del Xw, order_w
     agree, n_diff = [], 0
     cases = [(Xw_t, "sqeuclidean", 0), (Xw_t, "sqeuclidean", 512),
              (Xw_t[:300_001].contiguous(), "alternative_cosine", 0),
@@ -425,7 +535,7 @@ def _check_window(torch, state, errs):
         f"computes: {full_ms:.3f} ms at that peak, {100 * full_ms / k_ms:.1f}% reached | library "
         f"torch.bmm of the {tiles.shape[0]} windows, the gram part alone, full squares: "
         f"{state['win_library_ms']:.3f} ms | {card}")
-    del Xp, tiles, Xw_t
+    del Xp, tiles
 
 
 def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_recall, **kw):
@@ -460,10 +570,13 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
         gi, _ = index.neighbor_graph
         g_rec = recall(gi[gs], exact_knn(torch, X, X[torch.from_numpy(gs).to(dev)], 10))
     times = {k: round(v, 3) for k, v in index.phase_times_.items()}
+    tree = index._search_tree
+    largest_leaf = int((tree["leaf_hi"] - tree["leaf_lo"]).max())
     log(f"[{tag}] n={len(train)} d={train.shape[1]} {metric}: build+prepare {build_s:.2f} s, "
         f"query {query_s:.2f} s ({len(queries) / query_s:.0f} QPS, eps {epsilon}), recall@10 "
         f"query {q_rec:.4f}" + (f" graph {g_rec:.4f}" if g_rec is not None else "")
-        + f" | launches {launches} | phase_times {times} | {state['card']}")
+        + f" | largest search-tree leaf {largest_leaf} | launches {launches} | phase_times "
+        f"{times} | {state['card']}")
     if q_rec < RECALL_FLOOR or (g_rec is not None and g_rec < RECALL_FLOOR):
         raise AssertionError(f"{tag}: recall below {RECALL_FLOOR}")
     if launches["leaf_allpairs"] < index.n_trees:
@@ -556,6 +669,7 @@ def main():
                 # the squared norms of _tile_distances, a kernel of their own here
                 ("row_sqnorms", "sq", "window_topm.cu", "248"))
         ]
+        kernels[0]["shapes"] = state["leaf_shapes"]  # 100k x 128, 100k x 100, 1M x 128
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

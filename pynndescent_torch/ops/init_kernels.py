@@ -5,7 +5,9 @@ Two kernels, each a wrapper around hand-written CUDA (``csrc/``) with its
 plain PyTorch version beside it:
 
 * ``leaf_allpairs`` — per RP-tree leaf, the gram-form distance tile of its
-  contiguous tree-order slab (csrc/leaf_allpairs.cu);
+  contiguous tree-order slab (csrc/leaf_allpairs.cu: persistent blocks that
+  copy each leaf's slab asynchronously, compute only the tiles on or above
+  the diagonal of the leaf's own rows and write the whole output);
 * ``window_topm`` — exact per-row top-m inside contiguous windows of the
   tree-ordered data (csrc/window_topm.cu: a register-tiled kernel with its
   ``row_sqnorms`` pre-pass for the sweep's shapes, a general kernel for the
@@ -111,11 +113,15 @@ def leaf_allpairs(X_t, leaf_starts, leaf_sizes, *, metric: str):
     """Per-position leaf-window distances, one leaf at a time.
 
     X_t f32[n, d] — data rows in tree order; leaf_starts/leaf_sizes i32[L]
-    — the compact leaf table, starts ascending, padded with (n, 0). Returns
-    f32[n, LEAF_CAP] in tree order: row p holds the distances from the point
-    at tree position p to its leaf's first LEAF_CAP members (+inf past the
-    leaf size). Rows never covered by a leaf (positions past
-    ``start + LEAF_CAP`` of oversized leaves) are +inf.
+    — the compact leaf table, starts ascending, padded with (n, 0); every
+    tree position lies in exactly one leaf. Returns f32[n, LEAF_CAP] in tree
+    order: row p holds the distances from the point at tree position p to
+    its leaf's first LEAF_CAP members (+inf past the leaf size). Positions
+    past ``start + LEAF_CAP`` of an oversized leaf are +inf throughout.
+
+    On a CUDA tensor the kernel writes every element itself, so the output
+    is allocated uninitialised; a position that no leaf of the table holds
+    would stay so.
     """
     _metric_id(metric)
     if X_t.device.type == "cpu":
@@ -131,7 +137,7 @@ def leaf_allpairs(X_t, leaf_starts, leaf_sizes, *, metric: str):
     if leaf_starts.shape != leaf_sizes.shape or leaf_starts.dim() != 1:
         raise ValueError("leaf_starts and leaf_sizes must be matching 1-D tables")
     lib = cuda_build.load_library()
-    out = torch.full((n, LEAF_CAP), float("inf"), dtype=torch.float32, device=X_t.device)
+    out = torch.empty((n, LEAF_CAP), dtype=torch.float32, device=X_t.device)
     err = lib.pynnd_leaf_allpairs(
         X_t.data_ptr(), leaf_starts.data_ptr(), leaf_sizes.data_ptr(), leaf_starts.shape[0],
         n, d, _metric_id(metric), out.data_ptr(), cuda_build.stream_handle(X_t.device),

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``pynndescent_torch/csrc``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes``. The
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
+process a source, side by side) into a shared library with a plain C
+interface and loaded with ``ctypes``. The
 library's name carries a hash of the sources, so an edited source builds
 anew; builds go to ``pynndescent_torch/_build/`` (listed in .gitignore).
 """
@@ -28,7 +29,7 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # X, starts, sizes, n_leaves, n, d, cap, metric, out, stream
+    # X, starts, sizes, n_leaves, n, d, metric, out, stream
     "pynnd_leaf_allpairs": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     # X, is_bf16, n, d, sq, stream
     "pynnd_row_sqnorms": [_P, _I, _I, _I, _P, _P],
@@ -85,13 +86,26 @@ def load_library():
         cu, _ = _sources()
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)],
-            capture_output=True, text=True,
-        )
-        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        nvcc = _find_nvcc()
+        # one nvcc a source, all started together, then one link
+        objects = [tmp.with_suffix(f".{src.stem}.o") for src in cu]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objects)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append(logs[-1])
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+        path.with_suffix(".log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
         os.replace(tmp, path)
         last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(path))

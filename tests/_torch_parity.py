@@ -75,6 +75,78 @@ def window_ties_case():
     return X, win, dup, want
 
 
+# A hand-made leaf table: one row, sizes around the kernel's 4-row register
+# tile and its 64-row cap, an oversized leaf, a last leaf that ends at n, and
+# two padding entries (n, 0).
+HANDMADE_LEAF_SIZES = (1, 2, 7, 8, 9, 63, 64, 65, 200, 33)
+
+
+def handmade_leaf_table():
+    """(n, starts i32[L], sizes i32[L]) as numpy arrays."""
+    sizes = np.array(HANDMADE_LEAF_SIZES, np.int32)
+    n_pts = int(sizes.sum())
+    starts = (np.cumsum(sizes) - sizes).astype(np.int32)
+    pad = np.zeros(2, np.int32)
+    return n_pts, np.concatenate([starts, pad + n_pts]), np.concatenate([sizes, pad])
+
+
+def handmade_leaf_data(d, seed=0):
+    """Positive rows (every dot product is well above 0, so the logarithmic
+    metrics are well conditioned) with one zero row for the cosine family's
+    conventions."""
+    n_pts = handmade_leaf_table()[0]
+    X = (np.abs(np.random.RandomState(seed).randn(n_pts, d)) + 0.1).astype(np.float32)
+    X[3] = 0.0
+    return X
+
+
+def leaf_oracle(X_t, starts, sizes, metric, cap=64):
+    """Brute-force leaf_allpairs in float64, pair by pair from the metric's
+    definition (differences for the euclidean family, not the gram form):
+    [n, cap], +inf past a leaf's size and on rows past start + cap."""
+    fmax = float(np.finfo(np.float32).max)
+    X = X_t.astype(np.float64)
+    out = np.full((X.shape[0], cap), np.inf)
+    for s, z in zip(starts, sizes):
+        if z <= 0:
+            continue
+        m = min(int(z), cap)
+        rows = X[s:s + m]
+        g = rows @ rows.T
+        nrm = np.sqrt((rows * rows).sum(1))
+        nn = nrm[:, None] * nrm[None, :]
+        both0 = (nrm[:, None] == 0) & (nrm[None, :] == 0)
+        one0 = (nrm[:, None] == 0) | (nrm[None, :] == 0)
+        pos = np.where(g > 0, g, 1.0)
+        if metric in ("sqeuclidean", "euclidean", "l2"):
+            d2 = ((rows[:, None, :] - rows[None, :, :]) ** 2).sum(-1)
+            D = d2 if metric == "sqeuclidean" else np.sqrt(d2)
+        elif metric == "cosine":
+            D = np.where(both0, 0.0, np.where(one0, 1.0, 1.0 - g / np.where(one0, 1.0, nn)))
+        elif metric == "alternative_cosine":
+            D = np.where(both0, 0.0, np.where(one0 | (g <= 0), fmax,
+                                              np.log2(np.where(one0, 1.0, nn) / pos)))
+        elif metric == "dot":
+            D = np.where(g <= 0, 1.0, 1.0 - g)
+        elif metric == "alternative_dot":
+            D = np.where(g <= 0, fmax, -np.log2(pos))
+        elif metric == "inner_product":
+            D = -g
+        elif metric == "alternative_inner_product":
+            D = np.where(g <= 0, fmax, 1.0 / pos)
+        else:
+            raise ValueError(metric)
+        out[s:s + m, :m] = D
+    return out
+
+
+def leaf_blocks_symmetric(D, starts, sizes, cap=64):
+    """True when, inside every leaf's block, D equals its transpose exactly."""
+    return all(np.array_equal(D[s:s + min(z, cap), :min(z, cap)],
+                              D[s:s + min(z, cap), :min(z, cap)].T)
+               for s, z in zip(starts, sizes) if z > 0)
+
+
 @pytest.fixture
 def cuda_device():
     """torch.device('cuda'), or skip when there is no CUDA device."""

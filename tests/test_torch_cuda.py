@@ -18,7 +18,8 @@ import torch
 from pynndescent_torch import NNDescent
 from pynndescent_torch.ops import init_kernels as ik
 from pynndescent_torch.ops import rp_trees as tr
-from _torch_parity import (clustered, cuda_device, exact_knn, n, recall, t,  # noqa: F401
+from _torch_parity import (clustered, cuda_device, exact_knn, handmade_leaf_data,  # noqa: F401
+                           handmade_leaf_table, leaf_blocks_symmetric, n, recall, t,
                            window_ties_case)
 
 pytestmark = pytest.mark.cuda
@@ -43,6 +44,60 @@ def test_leaf_allpairs_kernel_matches_plain(cuda_device, tree_ordered, metric):
     assert ik.LAUNCHES["leaf_allpairs"] == 1
     want = ik.leaf_allpairs_plain(X_t, ls, lz, metric=metric)
     np.testing.assert_allclose(n(got), n(want), rtol=2e-4, atol=2e-4)
+
+
+# The hand-made table (leaves of 1 to 200 rows, a last leaf that ends at n,
+# padding entries) at the widths that take each path of the kernel: 128 (one
+# resident slab), 100 (16-byte copies, narrower rows), 3 (4-byte copies) and
+# 784 (streamed in chunks). Kernel and plain version sum the same positive
+# fp32 products in different orders: relative errors of order 1e-6 in the
+# gram, which the cancellation form turns into absolute errors up to about
+# 1e-3 at squared norms of order 1000 (d = 784), and a root near 0 into 3e-2.
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "alternative_cosine",
+                                    "inner_product"])
+@pytest.mark.parametrize("d", [128, 100, 3, 784])
+def test_leaf_allpairs_kernel_handmade_table_matches_plain(cuda_device, d, metric):
+    n_pts, starts, sizes = handmade_leaf_table()
+    X = t(handmade_leaf_data(d, seed=d)).to(cuda_device)
+    ls, lz = t(starts).to(cuda_device), t(sizes).to(cuda_device)
+    got = ik.leaf_allpairs(X, ls, lz, metric=metric)
+    torch.cuda.synchronize()
+    want = ik.leaf_allpairs_plain(X, ls, lz, metric=metric)
+    got, want = n(got), n(want)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4,
+                               atol=3e-2 if metric == "euclidean" else 1e-3)
+
+
+@pytest.mark.parametrize("d", [128, 100, 3, 784])
+def test_leaf_allpairs_kernel_writes_all_symmetric_and_repeatable(cuda_device, d):
+    """A launch into a NaN-filled buffer leaves no NaN (the kernel writes
+    every element itself); every leaf's block equals its transpose exactly;
+    a second launch, and a launch on a copy of X_t that is not 16-byte
+    aligned (the 4-byte copies), give the same bits."""
+    from pynndescent_torch.utils import cuda_build
+
+    n_pts, starts, sizes = handmade_leaf_table()
+    flat = torch.zeros(n_pts * d + 1, device=cuda_device)
+    X = flat[:-1].view(n_pts, d)
+    X.copy_(t(handmade_leaf_data(d, seed=d)))
+    ls, lz = t(starts).to(cuda_device), t(sizes).to(cuda_device)
+    first = ik.leaf_allpairs(X, ls, lz, metric="sqeuclidean")
+    out = torch.full((n_pts, ik.LEAF_CAP), float("nan"), device=cuda_device)
+    lib = cuda_build.load_library()
+    cuda_build.check(lib.pynnd_leaf_allpairs(
+        X.data_ptr(), ls.data_ptr(), lz.data_ptr(), ls.shape[0], n_pts, d,
+        ik.KERNEL_METRICS.index("sqeuclidean"), out.data_ptr(),
+        cuda_build.stream_handle(cuda_device)), "leaf_allpairs")
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()
+    assert torch.equal(out, first)
+    assert leaf_blocks_symmetric(n(out), starts, sizes)
+    shifted = flat[1:].view(n_pts, d)
+    shifted.copy_(X.clone())
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(ik.leaf_allpairs(shifted, ls, lz, metric="sqeuclidean"), first)
 
 
 @pytest.mark.parametrize("offset,dtype", [(0, torch.float32), (128, torch.float32),

@@ -21,7 +21,8 @@ import jax.numpy as jnp
 from pynndescent_tpu.ops import pallas_init as pi
 from pynndescent_tpu.ops import rp_trees as jr
 from pynndescent_torch.ops import init_kernels as ik
-from _torch_parity import n, t, window_ties_case
+from _torch_parity import (handmade_leaf_data, handmade_leaf_table, leaf_blocks_symmetric,
+                           leaf_oracle, n, t, window_ties_case)
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +75,66 @@ def test_leaf_allpairs_oversized_leaf_rows_stay_inf():
     assert np.isfinite(D[:64]).all() and np.isinf(D[64:]).all()
     want = ((X[:64, None] - X[None, :64]) ** 2).sum(-1)
     np.testing.assert_allclose(D[:64], want, rtol=1e-4, atol=1e-4)
+
+
+# The plain version against a float64 oracle that takes each pair from the
+# metric's definition. Tolerance: an fp32 dot product of d <= 100 positive
+# terms of order 1 carries a relative error of order 1e-6; the cancellation
+# form |x|^2 + |y|^2 - 2<x, y> turns that into an absolute error of order
+# 1e-4 at squared norms of order 100, and a square root near 0 magnifies it
+# once more (sqrt(1e-4) = 1e-2 for the self pairs, whose true distance is 0).
+# So rtol 1e-4 everywhere, atol 1e-3 on squared distances and 3e-2 on their
+# roots.
+@pytest.mark.parametrize("d", [3, 100])
+@pytest.mark.parametrize("metric", ik.KERNEL_METRICS)
+def test_leaf_allpairs_plain_matches_oracle_on_handmade_table(metric, d):
+    n_pts, starts, sizes = handmade_leaf_table()
+    X = handmade_leaf_data(d, seed=d)
+    got = n(ik.leaf_allpairs_plain(t(X), t(starts), t(sizes), metric=metric))
+    want = leaf_oracle(X, starts, sizes, metric)
+    assert got.shape == (n_pts, ik.LEAF_CAP) and got.dtype == np.float32
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    atol = 3e-2 if metric in ("euclidean", "l2") else 1e-3
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4, atol=atol)
+
+
+# one metric of each family, at a width the Pallas kernel pads (100 -> 128)
+@pytest.mark.parametrize("metric", ["sqeuclidean", "alternative_cosine", "inner_product"])
+def test_leaf_allpairs_plain_matches_pallas_d100(metric):
+    n_pts, d = 500, 100
+    X = np.random.RandomState(3).randn(n_pts, d).astype(np.float32)
+    X[[5, 77]] = 0.0
+    orders, starts, sizes = jr.build_forest_orders(
+        jnp.asarray(X), jnp.arange(1, dtype=jnp.uint32), 30, jr.forest_depth(n_pts, 30))
+    orders, starts, sizes = np.asarray(orders), np.asarray(starts), np.asarray(sizes)
+    ls, lz, _ = pi.leaf_tables_from_orders(jnp.asarray(starts), jnp.asarray(sizes), n_pts, 64)
+    X_t = X[orders[0]]
+    want = n(pi.leaf_allpairs(jnp.asarray(X_t), ls[0], lz[0], cap=64, metric=metric,
+                              interpret=True))
+    got = n(ik.leaf_allpairs(t(X_t), t(ls[0]), t(lz[0]), metric=metric))
+    covered = (np.arange(n_pts) - starts[0]) < 64
+    # same fp32 gram summed in another order over d = 100 terms: errors of
+    # order 1e-5 in the gram, 1e-4 after the cancellation at norms of order 100
+    np.testing.assert_allclose(got[covered], want[covered], rtol=5e-4, atol=5e-4)
+    assert np.isinf(got[~covered]).all()
+
+
+@pytest.mark.parametrize("d", [3, 100])
+def test_leaf_allpairs_cpu_wrapper_defines_every_element(d):
+    """No NaN anywhere; +inf exactly past a leaf's size and on the rows past
+    start + 64 of an oversized leaf, finite everywhere else; every leaf's
+    block equals its transpose."""
+    n_pts, starts, sizes = handmade_leaf_table()
+    X = handmade_leaf_data(d, seed=d)
+    D = n(ik.leaf_allpairs(t(X), t(starts), t(sizes), metric="sqeuclidean"))
+    assert not np.isnan(D).any()
+    inside = np.zeros_like(D, dtype=bool)
+    for s, z in zip(starts, sizes):
+        inside[s:s + min(z, 64), :min(z, 64)] = True
+    np.testing.assert_array_equal(np.isfinite(D), inside)
+    assert np.isposinf(D[~inside]).all()
+    assert leaf_blocks_symmetric(D, starts, sizes)
 
 
 def _compare_window(X, win, m, metric, offset, dtype=torch.float32):

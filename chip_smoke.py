@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                          # one card, every phase
     python3 chip_smoke.py --phases setup,kernels   # build the kernels, phase 2 alone
+    python3 chip_smoke.py --phases mnist784,metrics  # any subset, by name
 
 Phases, each printing its own line; any failure raises and the script exits
 non-zero:
@@ -18,7 +19,15 @@ non-zero:
 4. 100k x 100 cosine, the same;
 5. SIFT-1M-class 1M x 128 euclidean with the default ``locality="auto"``
    (window sweeps engage), graph and query recall@10;
-6. determinism: the same 20k-row index built twice gives identical graphs.
+6. determinism: the same 20k-row index built twice gives identical graphs,
+   and so do a uint8-quantized index's queries and an ``update()``;
+7. mnist784: 70k x 784 euclidean (``bench.py``'s MNIST-shaped cell), build ->
+   prepare -> query, then on the same index ``update()`` with 7,000 fresh
+   rows, ``save`` / ``load`` / pickle round trips and ``compress_index()``;
+8. quantized: ``quantization="uint8"``, ``"uint4"`` and ``"binary"`` on the
+   100k x 128 data beside the unquantized index;
+9. metrics: ``manhattan`` (a broadcast metric) and ``bit_hamming`` (packed
+   ``uint8`` rows) builds, which must launch no kernel.
 
 The last two lines are a JSON object describing the kernels and, last,
 ``{"ok": true, "device": {...}}``. Recall is measured against an exact fp32
@@ -54,13 +63,18 @@ def log(msg):
     print(msg, flush=True)
 
 
-def make_data(n, nq, d, seed=42):
-    """bench.py's clustered generator (1000 gaussian blobs)."""
+def make_data(n, nq, d, seed=42, n_extra=0):
+    """bench.py's clustered generator (1000 gaussian blobs). With ``n_extra``
+    a third array of further rows, drawn after the queries from the same
+    generator and blobs (the train rows and queries do not change)."""
     rs = np.random.RandomState(seed)
     centers = rs.randn(1000, d).astype(np.float32) * 5
-    train = (centers[rs.randint(0, 1000, n)] + rs.randn(n, d).astype(np.float32)).astype(np.float32)
-    queries = (centers[rs.randint(0, 1000, nq)] + rs.randn(nq, d).astype(np.float32)).astype(np.float32)
-    return train, queries
+
+    def draw(m):
+        return (centers[rs.randint(0, 1000, m)] + rs.randn(m, d).astype(np.float32)).astype(np.float32)
+
+    train, queries = draw(n), draw(nq)
+    return (train, queries, draw(n_extra)) if n_extra else (train, queries)
 
 
 def make_sift_like(n, nq, d=128, dz=16, seed=42):
@@ -78,16 +92,19 @@ def make_sift_like(n, nq, d=128, dz=16, seed=42):
     return gen(np.random.RandomState(seed), n), gen(np.random.RandomState(seed + 1), nq)
 
 
-def exact_knn(torch, X, Q, k, block=262144):
-    """Exact k nearest rows of X for each row of Q, fp32, by differences."""
+def exact_knn(torch, X, Q, k, block=262144, p=2.0, with_distances=False):
+    """Exact k nearest rows of X for each row of Q, fp32, by differences, in
+    blocks of X's rows (``p=1``: the L1 distance)."""
     best_d = torch.full((Q.shape[0], k), float("inf"), device=Q.device)
     best_i = torch.full((Q.shape[0], k), -1, dtype=torch.int64, device=Q.device)
     for s in range(0, X.shape[0], block):
-        d = torch.cdist(Q, X[s:s + block], compute_mode="donot_use_mm_for_euclid_dist")
+        d = torch.cdist(Q, X[s:s + block], p=p, compute_mode="donot_use_mm_for_euclid_dist")
         cd = torch.cat([best_d, d], 1)
         ci = torch.cat([best_i, torch.arange(s, s + d.shape[1], device=Q.device).expand_as(d)], 1)
         best_d, pos = torch.topk(cd, k, dim=1, largest=False)
         best_i = torch.gather(ci, 1, pos)
+    if with_distances:
+        return best_i.cpu().numpy(), best_d.cpu().numpy()
     return best_i.cpu().numpy()
 
 
@@ -264,9 +281,10 @@ def check_leaf_invariants(torch, name, X_t, ls, lz, metric):
 
 
 def _check_leaf(torch, state, errs, Xw_t, lsw, lzw):
-    """leaf_allpairs: small hand-made cases first, then the main path's three
-    shapes (100k x 128, 100k x 100 in angular tree order, and the 1M x 128
-    tree the caller built), each timed beside its plain version and bound."""
+    """leaf_allpairs: small hand-made cases first, then the main paths' four
+    shapes (100k x 128, 100k x 100 in angular tree order, the 1M x 128 tree
+    the caller built, and 70k x 784, which streams its slabs in chunks), each
+    timed beside its plain version and bound."""
     from pynndescent_torch.ops import init_kernels as ik
 
     dev = torch.device("cuda")
@@ -309,13 +327,16 @@ def _check_leaf(torch, state, errs, Xw_t, lsw, lzw):
     order, ls, lz, _ = _forest_order(torch, X)
     Xc = torch.from_numpy(make_data(100_000, 10, 100, seed=44)[0]).to(dev)
     order_c, lsc, lzc, _ = _forest_order(torch, Xc, angular=True)
+    Xm = torch.from_numpy(make_data(70_000, 10, 784, seed=45)[0]).to(dev)
+    order_m, lsm, lzm, _ = _forest_order(torch, Xm)
     shapes = (
         ("100000x128", X[order].contiguous(), ls, lz, ik.KERNEL_METRICS, "sqeuclidean"),
         ("100000x100", Xc[order_c].contiguous(), lsc, lzc, ("alternative_cosine",),
          "alternative_cosine"),
         ("1000000x128", Xw_t, lsw, lzw, ("sqeuclidean",), "sqeuclidean"),
+        ("70000x784", Xm[order_m].contiguous(), lsm, lzm, ("sqeuclidean",), "sqeuclidean"),
     )
-    del X, Xc
+    del X, Xc, Xm
     state["leaf_shapes"] = []
     for tag, X_t, l1, l2, metrics, timed in shapes:
         sq = float((X_t * X_t).sum(1).max())
@@ -538,7 +559,19 @@ def _check_window(torch, state, errs, Xw_t):
     del Xp, tiles
 
 
-def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_recall, **kw):
+def _add_path_launches(state, launches):
+    state.setdefault("path_launches", dict.fromkeys(launches, 0))
+    for k, v in launches.items():
+        state["path_launches"][k] += v
+
+
+def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_recall,
+                     retry_epsilon=None, keep=False, **kw):
+    """One main path: build -> prepare -> query on the card, with the launch
+    counts set to 0 just before and read just after. A query recall under the
+    floor at ``epsilon`` is printed and, with ``retry_epsilon``, the query
+    runs again there and that reading is held to the floor. With ``keep`` the
+    index comes back too, beside the epsilon that held."""
     from pynndescent_torch import NNDescent
     from pynndescent_torch.ops import init_kernels as ik
 
@@ -563,7 +596,8 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
     if metric == "cosine":  # cosine order == euclidean order on unit rows
         X = X / X.norm(dim=1, keepdim=True)
         Q = Q / Q.norm(dim=1, keepdim=True)
-    q_rec = recall(qi[sample], exact_knn(torch, X, Q, 10))
+    truth = exact_knn(torch, X, Q, 10)
+    q_rec = recall(qi[sample], truth)
     g_rec = None
     if graph_recall:
         gs = np.random.RandomState(1).choice(len(train), N_SAMPLE, replace=False)
@@ -577,14 +611,22 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
         f"query {q_rec:.4f}" + (f" graph {g_rec:.4f}" if g_rec is not None else "")
         + f" | largest search-tree leaf {largest_leaf} | launches {launches} | phase_times "
         f"{times} | {state['card']}")
+    if q_rec < RECALL_FLOOR and retry_epsilon is not None:
+        t0 = time.perf_counter()
+        qi, _ = index.query(q_dev, k=10, epsilon=retry_epsilon)
+        query_s = time.perf_counter() - t0
+        missed, q_rec, epsilon = q_rec, recall(qi[sample], truth), retry_epsilon
+        log(f"[{tag}] query recall {missed:.4f} is under {RECALL_FLOOR}; again at eps {epsilon}: "
+            f"recall@10 {q_rec:.4f}, query {query_s:.2f} s ({len(queries) / query_s:.0f} QPS) | "
+            f"{state['card']}")
     if q_rec < RECALL_FLOOR or (g_rec is not None and g_rec < RECALL_FLOOR):
         raise AssertionError(f"{tag}: recall below {RECALL_FLOOR}")
     if launches["leaf_allpairs"] < index.n_trees:
         raise AssertionError(f"{tag}: leaf_allpairs launched {launches['leaf_allpairs']} times "
                              f"for {index.n_trees} trees")
-    state.setdefault("path_launches", dict.fromkeys(launches, 0))
-    for k, v in launches.items():
-        state["path_launches"][k] += v
+    _add_path_launches(state, launches)
+    if keep:
+        return launches, index, epsilon, build_s
     del index
     torch.cuda.empty_cache()
     return launches
@@ -616,15 +658,249 @@ def phase_determinism(torch, state):
     runs = []
     for _ in range(2):
         index = NNDescent(train, n_neighbors=10, random_state=42, device="cuda")
-        runs.append(index.neighbor_graph + index.query(queries, k=10, epsilon=0.2))
+        out = index.neighbor_graph + index.query(queries, k=10, epsilon=0.2)
+        quant = NNDescent(train, n_neighbors=10, random_state=42, device="cuda",
+                          quantization="uint8")
+        out += quant.query(queries, k=10, epsilon=0.2) + (quant._quantized["codes"],)
+        index.update(xs_fresh=queries)
+        runs.append(out + index.neighbor_graph + index.query(queries, k=10, epsilon=0.2))
     same = all(np.array_equal(a, b) for a, b in zip(*runs))
-    log(f"[6 determinism] 20000x128 built twice: graphs and queries identical = {same}")
+    log(f"[6 determinism] 20000x128 built twice: graphs and queries, a uint8-quantized index's "
+        f"codes and queries, and the graph and queries after an update() identical = {same}")
     if not same:
         raise AssertionError("two builds with the same seed differ")
 
 
+def _same_answers(name, a, b):
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        raise AssertionError(f"{name}: query results differ from the index's own")
+
+
+def phase_mnist784(torch, state):
+    """bench.py's MNIST-shaped cell at full width, then update / save / load
+    / pickle / compress on the same index."""
+    import pickle
+    import tempfile
+    import warnings
+
+    from pynndescent_torch import NNDescent
+    from pynndescent_torch.ops import init_kernels as ik
+
+    dev = torch.device("cuda")
+    card = state["card"]
+    train, queries, fresh = make_data(70_000, 10_000, 784, seed=45, n_extra=7_000)
+    launches, index, epsilon, build_s = _build_and_query(
+        torch, state, "7 mnist784", train, queries, "euclidean", 0.2, True, retry_epsilon=0.25,
+        keep=True)
+    if launches["window_topm"] != 0:
+        raise AssertionError("mnist784: window_topm launched below the locality threshold")
+    q_dev = torch.from_numpy(queries).to(dev)
+
+    # update() with 7,000 fresh rows: a warm state and a fresh forest of
+    # n_trees_after_update trees through the leaf kernel
+    ik.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.update(xs_fresh=fresh)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    up_launches = dict(ik.LAUNCHES)
+    _add_path_launches(state, up_launches)
+    if up_launches["leaf_allpairs"] != index.n_trees_after_update or up_launches["window_topm"]:
+        raise AssertionError(f"mnist784 update: launches {up_launches}, expected leaf_allpairs "
+                             f"{index.n_trees_after_update}")
+    qi, qd = index.query(q_dev, k=10, epsilon=epsilon)
+    both = torch.from_numpy(np.vstack([train, fresh])).to(dev)
+    sample = np.random.RandomState(0).choice(len(queries), N_SAMPLE, replace=False)
+    q_rec = recall(qi[sample], exact_knn(torch, both, q_dev[torch.from_numpy(sample).to(dev)], 10))
+    gs = np.random.RandomState(1).choice(both.shape[0], N_SAMPLE, replace=False)
+    gi, _ = index.neighbor_graph
+    g_rec = recall(gi[gs], exact_knn(torch, both, both[torch.from_numpy(gs).to(dev)], 10))
+    fresh_rows = gs >= len(train)
+    up_times = {k: round(v, 3) for k, v in index.phase_times_.items() if k.startswith("update/")}
+    log(f"[7 mnist784] update(xs_fresh=7000): {update_s:.2f} s ({up_times}) beside the first "
+        f"build+prepare's {build_s:.2f} s; {fresh.nbytes} bytes of fresh rows crossed to the card; launches "
+        f"{up_launches} ({index.n_trees_after_update} trees after update); of the 77000 rows "
+        f"graph recall@10 {g_rec:.4f} ({int(fresh_rows.sum())} of the {N_SAMPLE} sampled rows "
+        f"fresh), query recall@10 {q_rec:.4f} at eps {epsilon} | {card}")
+    if g_rec < RECALL_FLOOR or q_rec < RECALL_FLOOR:
+        raise AssertionError(f"mnist784 update: recall below {RECALL_FLOOR}")
+    del both
+
+    # save / load and pickle on the card: identical answers
+    want = (qi, qd)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "index.npz")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        loaded = NNDescent.load(path)
+        load_s = time.perf_counter() - t0
+    if loaded._X.device.type != "cuda":
+        raise AssertionError("mnist784: load() did not restore to the card")
+    _same_answers("mnist784 save/load", loaded.query(q_dev, k=10, epsilon=epsilon), want)
+    del loaded
+    t0 = time.perf_counter()
+    blob = pickle.dumps(index)
+    again = pickle.loads(blob)
+    pickle_s = time.perf_counter() - t0
+    _same_answers("mnist784 pickle", again.query(q_dev, k=10, epsilon=epsilon), want)
+    del again
+    log(f"[7 mnist784] save {save_s:.2f} s, file {size} bytes, load {load_s:.2f} s; pickle "
+        f"{len(blob)} bytes, dumps+loads {pickle_s:.2f} s; queries after each identical to the "
+        f"index's own (ids and distances) | {card}")
+    del blob
+
+    # compress_index(): the graph goes, the answers stay
+    index.compress_index()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        graph = index.neighbor_graph
+    if graph is not None or not any("compressed" in str(w.message) for w in caught):
+        raise AssertionError("mnist784: a compressed index must give None with a warning")
+    _same_answers("mnist784 compress_index", index.query(q_dev, k=10, epsilon=epsilon), want)
+    log(f"[7 mnist784] compress_index(): neighbor_graph is None with its warning, queries "
+        f"identical | {card}")
+    del index
+    torch.cuda.empty_cache()
+
+
+def phase_quantized(torch, state):
+    """The three quantizations on the 100k x 128 data beside the unquantized
+    index at the same epsilon (tests/test_m5_features.py::test_quantized_query:
+    epsilon 0.3, proxy_beam_size 4, 16 for binary; floors 0.85, 0.85, 0.5).
+    The binary index is built on the rows less their column means: sign bits
+    need centred data. That test's floors were set on 5 uniform features; on
+    these 128-d blobs the codes rank a blob's members more coarsely (in both
+    packages, scripts/quantized_parity.py), so a reading under the floor is
+    printed and the query runs again with the over-fetch doubled, twice at
+    most; the last reading is held to the floor."""
+    from pynndescent_torch import NNDescent
+
+    dev = torch.device("cuda")
+    train, queries = make_data(100_000, 10_000, 128, seed=42)
+    mean = train.mean(0)
+    sample = np.random.RandomState(0).choice(len(queries), N_SAMPLE, replace=False)
+    X = torch.from_numpy(train).to(dev)
+    truth = exact_knn(torch, X, torch.from_numpy(queries[sample]).to(dev), 10)
+    del X
+    rows = []
+    for mode, floor, pbs in ((None, RECALL_FLOOR, 4), ("uint8", 0.85, 4), ("uint4", 0.85, 4),
+                             ("binary", 0.5, 16)):
+        shift = mean if mode == "binary" else 0.0
+        data, q = train - shift, queries - shift
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = NNDescent(data, n_neighbors=10, random_state=42, device="cuda", quantization=mode)
+        index.prepare()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if mode and index._X_search is not None:
+            raise AssertionError("a quantized index keeps no bf16 search copy")
+        q_dev = torch.from_numpy(q).to(dev)
+        index.query(q_dev[:256], k=10, epsilon=0.3, proxy_beam_size=pbs)  # warm the allocator
+        readings = []
+        for factor in (1, 2, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qi, qd = index.query(q_dev, k=10, epsilon=0.3, proxy_beam_size=pbs * factor)
+            query_s = time.perf_counter() - t0
+            rec = recall(qi[sample], truth)
+            readings.append(f"proxy_beam_size {pbs * factor}: recall@10 {rec:.4f}, "
+                            f"{len(q) / query_s:.0f} QPS")
+            if rec >= floor:
+                break
+        # the returned distances are true euclidean on the returned ids
+        true_d = np.linalg.norm(data[qi[sample]] - q[sample][:, None, :], axis=-1)
+        err = float(np.abs(qd[sample] - true_d).max())
+        code_bytes = index._quantized["codes"].nbytes if mode else data.nbytes // 2
+        rows.append(f"{mode or 'none (bf16 copy)'} (floor {floor}): " + "; ".join(readings)
+                    + f"; searched bytes {code_bytes}, build+prepare {build_s:.2f} s, "
+                    f"max |d - euclidean| {err:.2g}")
+        log(f"[8 quantized] 100000x128 euclidean, k=10, eps 0.3 | {rows[-1]} | {state['card']}")
+        if rec < floor:
+            raise AssertionError(f"quantized {mode}: recall {rec:.4f} below {floor}")
+        if err > 1e-3 * float(true_d.max()):
+            raise AssertionError(f"quantized {mode}: returned distances are not euclidean ({err})")
+        del index, q_dev
+        torch.cuda.empty_cache()
+
+
+def phase_metrics(torch, state):
+    """Builds outside the kernels' gate: a broadcast metric on float rows
+    and a bit metric on packed uint8 rows. Neither may launch a kernel."""
+    from pynndescent_torch import NNDescent
+    from pynndescent_torch.ops import init_kernels as ik
+
+    dev = torch.device("cuda")
+    card = state["card"]
+    gs = np.random.RandomState(1).choice(100_000, N_SAMPLE, replace=False)
+    gs_dev = torch.from_numpy(gs).to(dev)
+
+    def build(data, metric):
+        ik.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = NNDescent(data, metric=metric, n_neighbors=10, random_state=42, device="cuda",
+                          profile=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(ik.LAUNCHES)
+        if any(launches.values()):
+            raise AssertionError(f"{metric} build launched a gram kernel: {launches}")
+        return index, build_s, peak, launches
+
+    train, queries = make_data(100_000, 10_000, 128, seed=42)
+    index, build_s, peak, launches = build(train, "manhattan")
+    gi, gd = index.neighbor_graph
+    X = torch.from_numpy(train).to(dev)
+    g_rec = recall(gi[gs], exact_knn(torch, X, X[gs_dev], 10, block=16384, p=1.0))
+    t0 = time.perf_counter()
+    qi, qd = index.query(torch.from_numpy(queries).to(dev), k=10, epsilon=0.2)
+    query_s = time.perf_counter() - t0
+    qs = np.random.RandomState(0).choice(len(queries), N_SAMPLE, replace=False)
+    q_rec = recall(qi[qs], exact_knn(torch, X, torch.from_numpy(queries[qs]).to(dev), 10,
+                                     block=16384, p=1.0))
+    err = float(np.abs(gd[gs] - np.abs(train[gi[gs]] - train[gs][:, None, :]).sum(-1)).max())
+    log(f"[9 metrics] manhattan 100000x128: build {build_s:.2f} s (phase_times "
+        f"{ {k: round(v, 3) for k, v in index.phase_times_.items()} }), peak device memory of the "
+        f"build {peak} bytes, launches {launches}; recall@10 graph {g_rec:.4f}, query {q_rec:.4f} "
+        f"at eps 0.2 ({len(queries) / query_s:.0f} QPS, prepare included); max |d - L1| {err:.3g} "
+        f"| {card}")
+    if g_rec < RECALL_FLOOR or q_rec < RECALL_FLOOR or err > 1e-2:
+        raise AssertionError("manhattan: recall below the floor, or distances that are not L1")
+    del index, X
+    torch.cuda.empty_cache()
+
+    # 256 sign bits of the 100k x 256 clustered rows, packed: integer distances
+    # tie heavily, so a returned distance within the k-th exact one is a hit
+    raw = make_data(100_000, 10, 256, seed=46)[0] > 0
+    packed = np.packbits(raw, axis=1)
+    index, build_s, peak, launches = build(packed, "bit_hamming")
+    gi, gd = index.neighbor_graph
+    B = torch.from_numpy(raw).to(dev).float()
+    _, kth = exact_knn(torch, B, B[gs_dev], 10, block=65536, p=1.0, with_distances=True)
+    bits = (raw[gi[gs]] != raw[gs][:, None, :]).sum(-1)
+    if not np.array_equal(gd[gs], bits.astype(np.float32)):
+        raise AssertionError("bit_hamming: returned distances are not the pairs' bit counts")
+    g_rec = float(np.mean(gd[gs] <= kth[:, -1:]))
+    log(f"[9 metrics] bit_hamming 100000x32 bytes (256 bits): build {build_s:.2f} s (phase_times "
+        f"{ {k: round(v, 3) for k, v in index.phase_times_.items()} }), peak device memory "
+        f"{peak} bytes, launches {launches}; graph recall@10 counted with ties {g_rec:.4f} "
+        f"(floor 0.90); distances equal the bit counts | {card}")
+    if g_rec < 0.90:
+        raise AssertionError(f"bit_hamming: graph recall {g_rec:.4f} below 0.90")
+    del index, B
+    torch.cuda.empty_cache()
+
+
 PHASES = {"setup": phase_setup, "kernels": phase_kernels, "100k": phase_100k,
-          "100k_cosine": phase_100k_cosine, "1m": phase_1m, "determinism": phase_determinism}
+          "100k_cosine": phase_100k_cosine, "1m": phase_1m, "determinism": phase_determinism,
+          "mnist784": phase_mnist784, "quantized": phase_quantized, "metrics": phase_metrics}
 
 
 def main():
@@ -669,7 +945,7 @@ def main():
                 # the squared norms of _tile_distances, a kernel of their own here
                 ("row_sqnorms", "sq", "window_topm.cu", "248"))
         ]
-        kernels[0]["shapes"] = state["leaf_shapes"]  # 100k x 128, 100k x 100, 1M x 128
+        kernels[0]["shapes"] = state["leaf_shapes"]  # 100k x 128, 100k x 100, 1M x 128, 70k x 784
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,12 +1,24 @@
 """pynndescent_torch — the PyTorch / CUDA port of pynndescent_tpu.
 
-Dense single-device build, prepare and query of an NN-descent index, with
-the two TPU kernels of that path rewritten as CUDA kernels for Hopper
-(``csrc/``). Imports torch and numpy only, never jax or sklearn.
+The dense single-device surface of an NN-descent index: build, prepare,
+query, update, pickling and array checkpoints, the full metric registry,
+quantized search, the scikit-learn transformer and the graph utilities, with
+the TPU kernels of the build rewritten as CUDA kernels for Hopper
+(``csrc/``). Importing the package imports torch, numpy and scipy, never jax
+or scikit-learn: ``PyNNDescentTransformer`` needs scikit-learn and is
+imported on first access.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from pynndescent_torch.models.nndescent import NNDescent  # noqa: F401
 
-__all__ = ["NNDescent"]
+__all__ = ["NNDescent", "PyNNDescentTransformer"]
+
+
+def __getattr__(name):
+    if name == "PyNNDescentTransformer":
+        from pynndescent_torch.models.transformer import PyNNDescentTransformer
+
+        return PyNNDescentTransformer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,19 +1,26 @@
-"""NNDescent index for PyTorch: dense build -> prepare -> query (counterpart
-of pynndescent_tpu/models/nndescent.py, dense single-device path).
+"""NNDescent index for PyTorch (counterpart of
+pynndescent_tpu/models/nndescent.py, the dense single-device surface).
 
-The constructor takes the JAX package's arguments. What this package does
-not cover yet raises ``NotImplementedError`` naming its ROADMAP item:
-sparse input, bit metrics, quantization, callable and non-gram metrics,
-``init_graph`` warm starts, ``update()``, pickling and ``compress_index``
-(A12); ``devices=`` meshes (A13).
+The constructor takes the JAX package's arguments and covers its dense
+surface: every registry metric and callables with ``metric_kwds``, bit-packed
+``uint8`` data, proxy metrics with their exact rerank, quantized search,
+``init_graph`` warm starts, ``n_search_trees`` candidates, small sparse input
+(densified), ``update()``, ``compress_index()``, pickling and ``save`` /
+``load``. What is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item: sparse input wider than ``DENSIFY_MAX_FEATURES`` and the exact
+optimal-transport metrics (A12); ``devices=`` meshes (A13).
 
 The device is explicit: ``device="cuda"`` is the default and the
 constructor raises when CUDA is unavailable; only ``device="cpu"`` runs on
-the CPU (where the kernels run their plain PyTorch versions).
+the CPU (where the kernels run their plain PyTorch versions). The
+hand-written kernels engage for float32 data under a gram-form metric with
+no keywords (ops/nndescent.py); every other build takes the gather init.
 """
 
 from __future__ import annotations
 
+import datetime
+import json
 import warnings
 
 import numpy as np
@@ -23,14 +30,31 @@ from pynndescent_torch.models import search as search_ops
 from pynndescent_torch.ops import distances as dst
 from pynndescent_torch.ops import nndescent as nnd_ops
 from pynndescent_torch.ops import prune as prune_ops
+from pynndescent_torch.ops import quantization as qz
 from pynndescent_torch.ops import rp_trees
-from pynndescent_torch.ops.neighbors import MAX_ID, make_neighbor_state, merge_candidates
+from pynndescent_torch.ops import sparse as sparse_ops
+from pynndescent_torch.ops.neighbors import (MAX_ID, block_starts, make_neighbor_state,
+                                              merge_candidates, state_from_graph)
 from pynndescent_torch.utils import rng
 from pynndescent_torch.utils.profiling import PhaseTimer
 
-_ANGULAR_METRICS = ("cosine", "dot")
+_ANGULAR_METRICS = (
+    "cosine",
+    "dot",
+    "correlation",
+    "dice",
+    "jaccard",
+    "hellinger",
+    "hamming",
+    "bit_hamming",
+    "bit_jaccard",
+)
 _A12 = "is not ported to the PyTorch package yet (ROADMAP A12)"
 _tf32_warned = False
+
+
+def _ts():
+    return datetime.datetime.now().strftime("%a %b %d %H:%M:%S %Y")
 
 
 def _resolve_device(device) -> torch.device:
@@ -54,23 +78,34 @@ def _warn_tf32_once():
 
 
 def _check_finite(arr, name="data"):
-    if not np.all(np.isfinite(arr)):
+    if np.issubdtype(np.asarray(arr).dtype, np.floating) and not np.all(np.isfinite(arr)):
         raise ValueError(f"Input {name} contains NaN or infinity; NNDescent requires "
                          "finite values (matching sklearn check_array semantics).")
 
 
-def _is_sparse(data) -> bool:
-    from scipy import sparse
+def _unit_rows(data):
+    norms = np.linalg.norm(data, axis=1, keepdims=True)
+    return data / np.where(norms == 0.0, 1.0, norms)
 
-    return sparse.issparse(data)
+
+def _pack_sign_bits(q):
+    """``numpy.packbits(q > 0, axis=1)`` on a tensor: 8 sign bits a byte, the
+    first feature in the high bit, the tail padded with zeros."""
+    bits = (q > 0).to(torch.uint8)
+    pad = -bits.shape[1] % 8
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=q.device)
+    return torch.sum(bits.view(bits.shape[0], -1, 8) * weights, dim=-1, dtype=torch.uint8)
 
 
 class NNDescent:
-    """Approximate nearest neighbor index (dense, one device).
+    """Approximate nearest neighbor index on one device.
 
     Parameters mirror the JAX package's ``NNDescent``; ``device`` selects
     the torch device. Compatibility no-ops as in the JAX package:
-    ``n_jobs``, ``parallel_batch_queries``, ``low_memory``.
+    ``n_jobs``, ``parallel_batch_queries``, ``low_memory``;
+    ``sparse_sketch`` concerns wide sparse input only.
     """
 
     def __init__(
@@ -119,28 +154,15 @@ class NNDescent:
         self.device = _resolve_device(device)
         if self.device.type == "cuda":
             _warn_tf32_once()
-        if _is_sparse(data):
-            raise NotImplementedError(f"sparse input {_A12}")
-        if bit_metric or metric in ("bit_hamming", "bit_jaccard"):
-            raise NotImplementedError(f"bit metrics {_A12}")
-        dst.check_metric(metric)
-        if metric_kwds:
-            raise NotImplementedError(f"metric_kwds {_A12}")
-        if quantization is not None:
-            raise NotImplementedError(f"quantization {_A12}")
-        if compressed:
-            raise NotImplementedError(f"compress_index {_A12}")
-        if n_search_trees != 1:
-            raise NotImplementedError(f"n_search_trees > 1 {_A12}")
-        if init_graph is not None or init_dist is not None:
-            raise NotImplementedError(f"init_graph warm starts {_A12}")
         if devices not in (None, 1) or shard_data:
             raise NotImplementedError(
                 "multi-device builds are not ported to the PyTorch package yet (ROADMAP A13)")
 
         self.n_neighbors = n_neighbors
         self.metric = metric
-        self.metric_kwds = {}
+        self.metric_kwds = dict(metric_kwds or {})
+        self.bit_metric = bool(bit_metric)
+        self.angular_trees = bool(angular_trees)
         self.pruning_degree_multiplier = pruning_degree_multiplier
         self.diversify_prob = diversify_prob
         self.diversify_method = diversify_method
@@ -148,20 +170,33 @@ class NNDescent:
         self.n_search_trees = n_search_trees
         self.search_tree_leaf_size = search_tree_leaf_size
         self.max_search_tree_depth = max_search_tree_depth
-        self.quantization = None
+        self.quantization = quantization
         self.max_rptree_depth = max_rptree_depth
+        self.low_memory = low_memory
         self.delta = delta
+        self.compressed = compressed
+        self.parallel_batch_queries = parallel_batch_queries
         self.verbose = verbose
         self.random_state = random_state
         self.block_rows = block_rows
         self.beam_width = beam_width
         self.search_dtype = search_dtype
         self.build_dtype = build_dtype
+        self.sparse_sketch = sparse_sketch
         self.locality = locality
         self.profile = profile
         self._timer = PhaseTimer(profile, self.device)
+        self._set_distance_func()
 
-        data = np.ascontiguousarray(np.asarray(data, dtype=np.float32))
+        # dtype policy: float32 C-order dense (small CSR densified), uint8
+        # for bit-packed metrics
+        self._input_is_sparse = sparse_ops.is_sparse(data)
+        if self._input_is_sparse:
+            data = sparse_ops.densify(data)
+        self._is_bit = metric in ("bit_hamming", "bit_jaccard") or (
+            callable(metric) and self.bit_metric)
+        self._input_dtype = np.uint8 if self._is_bit else np.float32
+        data = np.ascontiguousarray(np.asarray(data, dtype=self._input_dtype))
         _check_finite(data, "data")
         if data.ndim != 2:
             raise ValueError(
@@ -186,15 +221,17 @@ class NNDescent:
         self.n_iters = n_iters
         self.max_candidates = max_candidates
         self.leaf_size = leaf_size
-        self._angular_trees = metric in _ANGULAR_METRICS
-        self._set_distance_func()
+        self.n_trees_after_update = max(2, int(round(n_trees / 3)))
+        self._angular_trees = metric in _ANGULAR_METRICS or (
+            callable(metric) and self.angular_trees)
 
         if metric == "dot":
-            norms = np.linalg.norm(data, axis=1, keepdims=True)
-            data = data / np.where(norms == 0.0, 1.0, norms)
+            data = _unit_rows(data)
         self._raw_data = data
         self._X = torch.from_numpy(data).to(self.device)
         self._root_seed = rng.resolve_seed(random_state)
+        if init_graph is not None and tree_init:
+            tree_init = False
         self.tree_init = tree_init and n_trees > 0
 
         with self._timer.trace():
@@ -203,54 +240,137 @@ class NNDescent:
                 if verbose:
                     print("Building RP forest with", n_trees, "trees")
                 with self._timer.phase("forest"):
-                    seeds = rng.host_ints(self._root_seed, rng.ROLE_FOREST, n_trees)
-                    # hyperplane splits use a bfloat16 copy of X, as in the JAX package
-                    forest = rp_trees.build_forest_orders(
-                        self._X.to(torch.bfloat16), seeds, leaf_size,
-                        min(rp_trees.forest_depth(n, leaf_size), self.max_rptree_depth),
-                        angular=self._angular_trees,
-                    )
+                    forest = self._build_forest(n_trees)
+            init_state = None
+            if init_graph is not None:
+                init_graph = np.asarray(init_graph, np.int32)
+                if init_graph.shape[0] != n:
+                    raise ValueError("Init graph size does not match dataset size")
+                gi = torch.from_numpy(init_graph).to(self.device)
+                if init_dist is None:
+                    gd = self._bulk_self_distances(gi)
+                else:
+                    gd = torch.from_numpy(np.asarray(init_dist, np.float32)).to(self.device)
+                init_state = state_from_graph(gi, gd, k=n_neighbors)
+            if verbose:
+                print(_ts(), "NN descent for", n_iters, "iterations")
             with self._timer.phase("descent"):
-                idx, dist_internal = nnd_ops.nn_descent(
-                    self._X, n_neighbors, self._root_seed,
-                    metric=self._internal_metric, n_iters=n_iters, delta=delta,
-                    max_candidates=max_candidates, forest=forest,
-                    leaf_cap=min(leaf_size, 64), block_rows=block_rows,
-                    compute_dtype=torch.bfloat16 if build_dtype == "bfloat16" else None,
-                    locality=self.locality, verbose=verbose,
-                )
-        self._neighbor_graph = (idx, dist_internal)
+                graph = self._descend(forest, init_state)
+        self._set_graph(graph)
+        if compressed:
+            self.prepare()
+            self.compress_index()
+
+    # ------------------------------------------------------------------
+    # build plumbing
+    # ------------------------------------------------------------------
+
+    def _build_forest(self, n_trees):
+        """The init forest from ``n_trees`` host-derived seeds. Hyperplane
+        splits use a bfloat16 copy of X, as in the JAX package; bit-packed
+        rows split by the closest anchor under popcount and stay as they
+        are."""
+        n = self._X.shape[0]
+        seeds = rng.host_ints(self._root_seed, rng.ROLE_FOREST, n_trees)
+        split_X = self._X if self._is_bit else self._X.to(torch.bfloat16)
+        return rp_trees.build_forest_orders(
+            split_X, seeds, self.leaf_size,
+            min(rp_trees.forest_depth(n, self.leaf_size), self.max_rptree_depth),
+            angular=self._angular_trees)
+
+    def _descend(self, forest, init_state):
+        return nnd_ops.nn_descent(
+            self._X, self.n_neighbors, self._root_seed,
+            metric=self._internal_metric, metric_kwds=self._internal_metric_kwds,
+            n_iters=self.n_iters, delta=self.delta, max_candidates=self.max_candidates,
+            init_graph=init_state, forest=forest, leaf_cap=min(self.leaf_size, 64),
+            block_rows=self.block_rows,
+            compute_dtype=torch.bfloat16 if self.build_dtype == "bfloat16" else None,
+            locality=self.locality, verbose=self.verbose)
+
+    def _set_graph(self, graph):
+        """Install a freshly built (indices, distances) graph (device
+        tensors, internal metric) and drop everything derived from the old
+        one."""
+        self._neighbor_graph = graph
+        self._graph_np = None
         self._warned_incomplete = False
         self._search_graph = None
         self._search_tree = None
+        self._tree_dev = None
+        self._X_search = None
+        self._quantized = None
 
-    # ------------------------------------------------------------------
+    def _bulk_self_distances(self, idx):
+        """Internal-metric distances from every row to its ``idx`` entries
+        (+inf at -1), in row blocks."""
+        fn = nnd_ops._resolve_rowwise_metric(self._internal_metric, self._internal_metric_kwds)
+        n, k = idx.shape
+        b = max(1, min(n, (1 << 26) // max(k * self.dim, 1)))
+        out = torch.empty((n, k), dtype=torch.float32, device=self.device)
+        for s0 in block_starts(n, b):
+            bi = idx[s0:s0 + b]
+            d = fn(self._X[s0:s0 + b], self._X[torch.clamp(bi, min=0).to(torch.int64)])
+            out[s0:s0 + b] = torch.where(bi < 0, torch.full_like(d, float("inf")), d)
+        return out
 
     def _set_distance_func(self):
-        """Substitute the order-preserving fast alternative for build and
-        search; correct distances on output."""
-        entry = dst.fast_distance_alternatives.get(self.metric)
-        if entry is not None:
-            self._internal_metric = entry["pairwise"]
+        """Registry lookup with the fast-alternative / proxy substitution for
+        build and search; distances are corrected, or reranked by the true
+        metric, on output."""
+        metric = self.metric
+        self._distance_correction = None
+        self._internal_metric_kwds = self.metric_kwds
+        self._is_proxy = False
+        self._true_metric = None
+        if callable(metric):
+            self._internal_metric = metric
+        elif metric in dst.OT_METRICS or metric in dst.OT_PROXY_METRICS:
+            raise NotImplementedError(f"metric '{metric}' (exact optimal transport) {_A12}")
+        elif metric in dst.proxy_distances:
+            entry = dst.proxy_distances[metric]
+            self._internal_metric = entry["proxy_dist"]
+            self._true_metric = entry["true_dist"]
+            self._is_proxy = True
+        elif metric in dst.fast_distance_alternatives:
+            entry = dst.fast_distance_alternatives[metric]
+            self._internal_metric = entry["pairwise"] or entry["dist"]
             self._distance_correction = entry["correction"]
+        elif metric in dst.named_distances:
+            self._internal_metric = metric
         else:
-            self._internal_metric = self.metric
-            self._distance_correction = None
+            raise ValueError(f"Metric '{metric}' not recognized")
 
-    def _maybe_warn_incomplete(self, idx):
+    def _maybe_warn_incomplete(self, flag=None):
+        """Warn once when some row has fewer than n_neighbors entries."""
         if self._warned_incomplete:
             return
         self._warned_incomplete = True
-        if np.any(idx < 0):
+        if flag is None:
+            flag = bool((self._neighbor_graph[0] < 0).any())
+        if flag:
             warnings.warn("Failed to correctly find n_neighbors for some samples. "
                           "Results may be less than ideal. Try re-running with "
                           "different parameters.")
 
+    def _graph_host(self):
+        """Numpy copy of the neighbor graph (internal distances); brought
+        from the device once and kept."""
+        if self._neighbor_graph is None:
+            return None
+        if self._graph_np is None:
+            self._graph_np = tuple(t.cpu().numpy() for t in self._neighbor_graph)
+        return self._graph_np
+
     @property
     def neighbor_graph(self):
-        """(indices, distances) as numpy, distances in the true metric."""
-        idx, d = (t.cpu().numpy() for t in self._neighbor_graph)
-        self._maybe_warn_incomplete(idx)
+        """(indices, distances) as numpy, distances in the true metric (the
+        proxy's own for a proxy metric). None for a compressed index."""
+        if self._neighbor_graph is None:
+            warnings.warn("The index is compressed; neighbor graph is not available.")
+            return None
+        self._maybe_warn_incomplete()
+        idx, d = self._graph_host()
         if self._distance_correction is not None:
             d = self._distance_correction(d)
         return idx, np.asarray(d, np.float32)
@@ -258,12 +378,13 @@ class NNDescent:
     @property
     def phase_times_(self):
         """Accumulated wall seconds per phase (forest, descent,
-        prepare/diversify, prepare/search_tree, query); filled only when the
-        index was built with ``profile`` truthy."""
+        prepare/diversify, prepare/search_tree, query, and update/forest,
+        update/descent of ``update()``); filled only when the index was built
+        with ``profile`` truthy."""
         return dict(self._timer.times)
 
     # ------------------------------------------------------------------
-    # prepare: diversified search graph + search tree
+    # prepare: diversified search graph + search tree (+ quantized codes)
     # ------------------------------------------------------------------
 
     def _assemble(self, idx, dist, seed: int):
@@ -275,7 +396,8 @@ class NNDescent:
         metric = self._internal_metric
         degrees = (prune_ops.compute_degrees(idx)
                    if self.diversify_method == "degree_aware" else None)
-        kw = dict(degrees=degrees, aggression=self.degree_prune_aggressiveness)
+        kw = dict(degrees=degrees, aggression=self.degree_prune_aggressiveness,
+                  metric_kwds=self._internal_metric_kwds)
         row_ids = torch.arange(n, device=idx.device)[:, None]
         keep_fwd = prune_ops.diversify_all(idx, dist, self._X, metric, self.diversify_prob,
                                            seed, **kw)
@@ -294,34 +416,100 @@ class NNDescent:
         return state.idx, min_dist
 
     def prepare(self):
-        """Build the search graph and the search tree."""
+        """Build the search graph, the search tree and, for a quantized
+        index, the codes."""
         if self._search_graph is not None:
             return
         idx, dist = self._neighbor_graph
         if self.verbose:
-            print("Building and diversifying the search graph")
+            print(_ts(), "Building and diversifying the search graph")
         with self._timer.phase("prepare/diversify"):
             adj, self._min_distance = self._assemble(
                 idx, dist, rng.derive_seed(self._root_seed, rng.ROLE_SEARCH, 7))
-        self._maybe_warn_incomplete(idx.cpu().numpy())
+        if self.verbose:
+            deg = (adj >= 0).sum(dim=1).to(torch.float32)
+            print(_ts(), f"Search graph: mean degree {float(deg.mean()):.1f}, max {int(deg.max())}")
+        self._maybe_warn_incomplete()
         self._search_graph = adj
+        self._init_quantization()
         self._make_search_copy()
+
+        # search tree: graph-informed hub splits (scored by edge cuts of the
+        # kNN graph for bit-packed data, by balance otherwise). With
+        # n_search_trees > 1 that many candidate trees are built and the one
+        # whose leaves capture the most neighbor pairs is flattened.
+        degrees = prune_ops.compute_degrees(idx)
+        st_leaf_size = self.search_tree_leaf_size or max(self.leaf_size, self.n_neighbors)
+        st_depth = self.max_search_tree_depth or rp_trees.forest_depth(
+            self._X.shape[0], st_leaf_size)
+        nb_idx = idx if self._is_bit else None
+        cand_seeds = rng.host_ints(self._root_seed, rng.ROLE_SEARCH,
+                                   max(1, int(self.n_search_trees)))
+        seed = cand_seeds[0]
+        if len(cand_seeds) > 1:
+            best_score = -1.0
+            idx_host = self._graph_host()[0]
+            for cand in cand_seeds:
+                o, s, z = rp_trees.build_tree_order(
+                    self._X, cand, st_leaf_size, st_depth, angular=self._angular_trees,
+                    degrees=degrees, neighbor_idx=nb_idx)
+                sc = rp_trees.score_tree(o, s, z, idx_host)
+                if self.verbose:
+                    print(_ts(), f"search-tree candidate seed {cand}: score {sc:.4f}")
+                if sc > best_score:
+                    best_score, seed = sc, cand
         with self._timer.phase("prepare/search_tree"):
-            st_leaf_size = self.search_tree_leaf_size or max(self.leaf_size, self.n_neighbors)
-            st_depth = self.max_search_tree_depth or rp_trees.forest_depth(
-                self._X.shape[0], st_leaf_size)
             tree = rp_trees.flatten_search_tree(
-                self._X, rng.host_ints(self._root_seed, rng.ROLE_SEARCH, 1)[0],
-                leaf_size=st_leaf_size, max_depth=st_depth, angular=self._angular_trees,
-                degrees=prune_ops.compute_degrees(idx),
-            )
+                self._X, seed, leaf_size=st_leaf_size, max_depth=st_depth,
+                angular=self._angular_trees, materialize=self.quantization is not None,
+                degrees=degrees, neighbor_idx=nb_idx)
             self._search_tree = tree.to_arrays()
             self._tree_dev = search_ops.tree_to_device(self._search_tree, self.device)
 
     def _make_search_copy(self):
         """bfloat16 copy of X for the search's gathers; results are reranked
-        exactly in fp32."""
-        self._X_search = self._X.to(torch.bfloat16) if self.search_dtype == "bfloat16" else None
+        exactly in fp32. Bit-packed and quantized indexes search their own
+        bytes and get no copy."""
+        use = self.search_dtype == "bfloat16" and not self._is_bit and self.quantization is None
+        self._X_search = self._X.to(torch.bfloat16) if use else None
+
+    def _init_quantization(self):
+        """Compress the data and set up the asymmetric quantized search
+        distance. The codebook's sample is drawn from a seed derived from the
+        root seed, so it does not depend on how much of a ``RandomState`` was
+        consumed since the constructor."""
+        if self.quantization is None:
+            self._quantized = None
+            return
+        seed = rng.host_ints(self._root_seed, rng.ROLE_QUANTIZE, 1)[0]
+        rs = np.random.RandomState(seed)
+        if self.quantization == "binary":
+            self._quantized = {"mode": "binary", "codes": qz.binary_codes(self._raw_data)}
+        elif self.quantization == "uint8":
+            codebook = qz.uint8_codebook(self._raw_data, rs)
+            self._quantized = {"mode": "uint8", "codes": qz.uint8_codes(self._raw_data, codebook),
+                               "codebook": codebook}
+        elif self.quantization == "uint4":
+            codebook = qz.uint4_codebook(self._raw_data, rs)
+            self._quantized = {"mode": "uint4", "codes": qz.uint4_codes(self._raw_data, codebook),
+                               "codebook": codebook}
+        else:
+            raise ValueError(f"Unknown quantization '{self.quantization}'")
+        self._load_quantized()
+
+    def _load_quantized(self):
+        """The codes on the device and the search-distance closure, from the
+        stored mode / codebook (also after unpickling)."""
+        mode = self._quantized["mode"]
+        if mode == "binary":
+            fn = qz.make_binary_rowwise(self.metric)
+        elif mode == "uint8":
+            fn = qz.make_uint8_rowwise(self.metric, self._quantized["codebook"], self.device)
+        else:
+            fn = qz.make_uint4_rowwise(self.metric, self._quantized["codebook"], self.dim,
+                                       self.device)
+        self._quantized_rowwise = fn
+        self._quantized_codes_dev = torch.from_numpy(self._quantized["codes"]).to(self.device)
 
     # ------------------------------------------------------------------
     # query
@@ -329,22 +517,25 @@ class NNDescent:
 
     def query(self, query_data, k=10, epsilon=0.1, proxy_beam_size=4, expansions_per_step=2):
         """k nearest neighbors of each query point. Returns numpy (indices,
-        distances) with distances in the true metric."""
+        distances) with distances in the true metric. Proxy metrics and
+        quantized indexes over-fetch ``proxy_beam_size * k`` candidates and
+        rerank them with the true metric."""
         self.prepare()
         with self._timer.phase("query"):
-            return self._query_impl(query_data, k, epsilon, expansions_per_step)
+            return self._query_impl(query_data, k, epsilon, proxy_beam_size, expansions_per_step)
 
-    def _query_impl(self, query_data, k, epsilon, expansions_per_step=2):
-        if _is_sparse(query_data):
-            raise NotImplementedError(f"sparse queries {_A12}")
+    def _queries_to_device(self, query_data):
+        if sparse_ops.is_sparse(query_data):
+            query_data = sparse_ops.densify(query_data)
+        dtype = torch.uint8 if self._is_bit else torch.float32
         if isinstance(query_data, torch.Tensor):
-            q = query_data.to(device=self.device, dtype=torch.float32)
+            q = query_data.to(device=self.device, dtype=dtype)
         else:
-            q = torch.from_numpy(np.ascontiguousarray(np.asarray(query_data, np.float32)))
-            q = q.to(self.device)
+            q = np.ascontiguousarray(np.asarray(query_data, self._input_dtype))
+            q = torch.from_numpy(q).to(self.device)
         if q.dim() == 1:
             q = q.reshape(1, -1)
-        if not bool(torch.isfinite(q).all()):
+        if not self._is_bit and not bool(torch.isfinite(q).all()):
             raise ValueError("Input query data contains NaN or infinity; NNDescent requires "
                              "finite values (matching sklearn check_array semantics).")
         if q.shape[1] != self.dim:
@@ -353,21 +544,44 @@ class NNDescent:
         if self.metric in ("cosine", "dot"):
             norms = torch.linalg.vector_norm(q, dim=1, keepdim=True)
             q = q / torch.where(norms == 0.0, torch.ones_like(norms), norms)
+        return q
 
+    def _query_impl(self, query_data, k, epsilon, proxy_beam_size=4, expansions_per_step=2):
+        q = self._queries_to_device(query_data)
         use_bf16 = self._X_search is not None
-        # modest over-fetch: the bf16 beam may mis-rank near-ties, the exact
-        # rerank below recovers them
-        search_k = max(k + k // 2, k + 2) if use_bf16 else k
+        is_proxy = self._is_proxy or self._quantized is not None
+        if is_proxy:
+            search_k = proxy_beam_size * k
+        elif use_bf16:
+            # modest over-fetch: the bf16 beam may mis-rank near-ties, the
+            # exact rerank below recovers them
+            search_k = max(k + k // 2, k + 2)
+        else:
+            search_k = k
+        tree_queries = None
+        min_distance = self._min_distance
+        search_q = q
+        if self._quantized is not None:
+            # the beam runs on codes, the tree descent on the float queries
+            cand_X = self._quantized_codes_dev
+            dist_rowwise = self._quantized_rowwise
+            tree_queries = q
+            if self._quantized["mode"] == "binary":
+                search_q = _pack_sign_bits(q)
+            min_distance = 0.0
+        else:
+            cand_X = self._X_search if use_bf16 else self._X
+            dist_rowwise = nnd_ops._resolve_rowwise_metric(
+                self._internal_metric, self._internal_metric_kwds, cast_candidates_f32=use_bf16)
+
         beam = self.beam_width or max(2 * search_k, 48)
         idx, d = search_ops.search(
-            q, self._X_search if use_bf16 else self._X, self._search_graph, self._tree_dev,
+            search_q, cand_X, self._search_graph, self._tree_dev,
             rng.derive_seed(self._root_seed, rng.ROLE_SEARCH, 2), k=search_k, epsilon=epsilon,
-            min_distance=self._min_distance, beam_width=beam,
-            dist_rowwise=nnd_ops._resolve_rowwise_metric(self._internal_metric,
-                                                         cast_candidates_f32=use_bf16),
-            expansions_per_step=int(expansions_per_step),
+            min_distance=min_distance, beam_width=beam, dist_rowwise=dist_rowwise,
+            expansions_per_step=int(expansions_per_step), tree_queries=tree_queries,
         )
-        if use_bf16:
+        if is_proxy or use_bf16:
             idx, d = self._rerank(q, idx, k)
             return idx.cpu().numpy(), d.cpu().numpy()
         idx, d = idx[:, :k].cpu().numpy(), d[:, :k].cpu().numpy()
@@ -377,21 +591,223 @@ class NNDescent:
 
     def _rerank(self, queries, cand_idx, k):
         """Exact distances in the true metric on the over-fetched candidates;
-        keep the k smallest."""
-        true_metric = dst.named_distances[self.metric]
-        C = self._X[torch.clamp(cand_idx, min=0).to(torch.int64)]
-        d = true_metric(queries[:, None, :], C)
+        keep the k smallest. The true metric is the proxy's true side, else
+        the user's metric by its registry formula (the difference form for
+        the euclidean family) with the user's keywords."""
+        true_metric = self._true_metric if self._is_proxy else None
+        if true_metric is None:
+            true_metric = (dst.named_distances[self.metric] if isinstance(self.metric, str)
+                           else self.metric)
+        fn = nnd_ops._resolve_rowwise_metric(true_metric, self.metric_kwds)
+        d = fn(queries, self._X[torch.clamp(cand_idx, min=0).to(torch.int64)])
         d = torch.where(cand_idx < 0, torch.full_like(d, float("inf")), d)
         nd, pos = torch.sort(d, dim=-1, stable=True)
         return torch.gather(cand_idx, -1, pos)[:, :k], nd[:, :k]
 
     # ------------------------------------------------------------------
 
-    def update(self, *args, **kwargs):
-        raise NotImplementedError(f"update() {_A12}")
-
     def compress_index(self):
-        raise NotImplementedError(f"compress_index {_A12}")
+        """Drop the build-side neighbor graph to shrink the serialized
+        index; queries go on working."""
+        self.prepare()
+        self.compressed = True
+        self._neighbor_graph = None
+        self._graph_np = None
+
+    # ------------------------------------------------------------------
+    # incremental update
+    # ------------------------------------------------------------------
+
+    def update(self, xs_fresh=None, xs_updated=None, updated_indices=None):
+        """Append fresh rows and / or overwrite rows in place, then re-run
+        the descent from the previous graph with a fresh, smaller forest of
+        ``n_trees_after_update`` trees.
+
+        The graph is edited on the device; only the fresh and the changed
+        rows cross to it (``(len(xs_fresh) + len(xs_updated)) * dim`` values).
+        ``_raw_data`` stays the host copy. The root seed moves on to
+        ``derive_seed(root, ROLE_UPDATE)``: successive updates draw different
+        forests, and the same sequence of calls gives the same index."""
+        if self._neighbor_graph is None:
+            raise ValueError("Cannot update a compressed index")
+        # check and coerce both inputs before anything changes; the index's
+        # input dtype: a float cast would corrupt uint8 rows
+        if xs_updated is not None:
+            xs_updated = np.ascontiguousarray(np.asarray(xs_updated, self._input_dtype))
+            _check_finite(xs_updated, "xs_updated")
+            updated_indices = np.asarray(updated_indices, np.int64)
+            if self.metric == "dot":
+                xs_updated = np.ascontiguousarray(_unit_rows(xs_updated))
+        if xs_fresh is not None:
+            if sparse_ops.is_sparse(xs_fresh):
+                xs_fresh = sparse_ops.densify(xs_fresh)
+            xs_fresh = np.ascontiguousarray(np.asarray(xs_fresh, self._input_dtype))
+            _check_finite(xs_fresh, "xs_fresh")
+            if self.metric == "dot":
+                xs_fresh = np.ascontiguousarray(_unit_rows(xs_fresh))
+
+        data = self._raw_data
+        idx, dist = self._neighbor_graph
+        n_old, k = idx.shape
+        # the search structures are rebuilt lazily: free the search copy of X
+        # before the table grows
+        self._X_search = None
+
+        if xs_updated is not None:
+            data = data.copy()
+            data[updated_indices] = xs_updated
+            rows = torch.from_numpy(updated_indices).to(self.device)
+            self._X[rows] = torch.from_numpy(xs_updated).to(self.device)
+            # invalidate graph entries that reference, or belong to, a changed row
+            touched = torch.zeros(n_old + 1, dtype=torch.bool, device=self.device)
+            touched[rows] = True
+            entry_touched = touched[torch.clamp(idx, min=0).to(torch.int64)] | touched[:n_old, None]
+            idx = torch.where(entry_touched, torch.full_like(idx, -1), idx)
+            dist = torch.where(entry_touched, torch.full_like(dist, float("inf")), dist)
+
+        if xs_fresh is not None:
+            data = np.vstack([data, xs_fresh])
+            m = len(xs_fresh)
+            # the old table is released as soon as the grown one replaces it
+            self._X = torch.cat([self._X, torch.from_numpy(xs_fresh).to(self.device)])
+            idx = torch.cat([idx, torch.full((m, k), -1, dtype=idx.dtype, device=self.device)])
+            dist = torch.cat([dist, torch.full((m, k), float("inf"), dtype=dist.dtype,
+                                               device=self.device)])
+
+        self._raw_data = data
+        self._root_seed = rng.derive_seed(self._root_seed, rng.ROLE_UPDATE)
+        with self._timer.phase("update/forest"):
+            forest = self._build_forest(self.n_trees_after_update)
+        with self._timer.phase("update/descent"):
+            graph = self._descend(forest, state_from_graph(idx, dist, k=k))
+        self._set_graph(graph)
+
+    # ------------------------------------------------------------------
+    # pickling and array checkpoints
+    # ------------------------------------------------------------------
 
     def __getstate__(self):
-        raise NotImplementedError(f"pickling {_A12}")
+        """The prepared index as host state: numpy arrays and plain values,
+        no tensors, generators or closures. The device goes out as a
+        string."""
+        self.prepare()
+        state = self.__dict__.copy()
+        for key in ("_timer", "_tree_dev", "_quantized_rowwise", "_quantized_codes_dev",
+                    "_graph_np"):
+            state.pop(key, None)
+        state["device"] = str(self.device)
+        state["_X"] = None  # rebuilt from _raw_data
+        state["_X_search"] = None
+        state["_neighbor_graph"] = self._graph_host()
+        state["_search_graph"] = self._search_graph.cpu().numpy()
+        return state
+
+    def __setstate__(self, state):
+        """Restore to the device named in the state; raises when that is a
+        CUDA device and none is present."""
+        self.__dict__.update(state)
+        self.device = _resolve_device(state["device"])
+        self._timer = PhaseTimer(getattr(self, "profile", False), self.device)
+        self._X = torch.from_numpy(np.ascontiguousarray(self._raw_data)).to(self.device)
+        self._graph_np = state["_neighbor_graph"]
+        if self._graph_np is not None:
+            self._neighbor_graph = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in self._graph_np)
+        self._search_graph = torch.from_numpy(
+            np.ascontiguousarray(state["_search_graph"])).to(self.device)
+        self._tree_dev = search_ops.tree_to_device(self._search_tree, self.device)
+        self._make_search_copy()
+        if self._quantized is not None:
+            self._load_quantized()
+
+    def save(self, path):
+        """Array checkpoint: one ``.npz`` with every flat array of the
+        prepared index under its attribute path, plus a JSON blob of the
+        plain values (``__meta__``); no pickle bytecode. Callable metrics
+        cannot be written this way: pickle those."""
+        if callable(self.metric):
+            raise ValueError(
+                "save() supports registry (string) metrics; use pickle for callable metrics")
+        arrays, meta = {}, {}
+
+        def put(prefix, obj):
+            for kk, vv in obj.items():
+                key = f"{prefix}{kk}"
+                if isinstance(vv, dict):
+                    meta[key] = ["__dict__"]
+                    put(key + "/", vv)
+                elif isinstance(vv, np.ndarray):
+                    arrays[key] = vv
+                elif vv is None or isinstance(vv, (bool, int, float, str)):
+                    meta[key] = ["__val__", vv]
+                elif isinstance(vv, (list, tuple)) and all(
+                        x is None or isinstance(x, (bool, int, float, str)) for x in vv):
+                    meta[key] = ["__tuple__" if isinstance(vv, tuple) else "__list__", list(vv)]
+                elif isinstance(vv, tuple) and all(isinstance(x, np.ndarray) for x in vv):
+                    meta[key] = ["__arrtuple__", len(vv)]
+                    for i, x in enumerate(vv):
+                        arrays[f"{key}/__t{i}"] = x
+                elif isinstance(vv, np.random.RandomState):
+                    meta[key] = ["__drop__"]  # _root_seed already captured
+                elif isinstance(vv, (np.integer, np.floating, np.bool_)):
+                    meta[key] = ["__val__", vv.item()]
+                elif callable(vv) or isinstance(vv, np.dtype) or isinstance(vv, type):
+                    meta[key] = ["__rebuild__"]  # re-derived from the config
+                else:
+                    raise TypeError(f"cannot checkpoint attribute {key!r} of type {type(vv)}")
+
+        put("", self.__getstate__())
+        arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        np.savez(path, **arrays)
+
+    @staticmethod
+    def _read_checkpoint(path):
+        """The attribute dict of a ``save()`` file."""
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["__meta__"].tobytes()).decode())
+            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+
+        def build(prefix):
+            out = {}
+            plen = len(prefix)
+            for key, tag in meta.items():
+                if not key.startswith(prefix) or "/" in key[plen:]:
+                    continue
+                name = key[plen:]
+                if tag[0] == "__dict__":
+                    out[name] = build(key + "/")
+                elif tag[0] == "__val__":
+                    out[name] = tag[1]
+                elif tag[0] == "__tuple__":
+                    out[name] = tuple(tag[1])
+                elif tag[0] == "__list__":
+                    out[name] = tag[1]
+                elif tag[0] == "__arrtuple__":
+                    out[name] = tuple(arrays[f"{key}/__t{i}"] for i in range(tag[1]))
+                elif tag[0] in ("__drop__", "__rebuild__"):
+                    out[name] = None
+            for key, arr in arrays.items():
+                if key.startswith(prefix) and "/" not in key[plen:]:
+                    out[key[plen:]] = arr
+            return out
+
+        return build("")
+
+    @classmethod
+    def _from_host_state(cls, state, device=None):
+        """An index from a host state dict (the layout of ``__getstate__``
+        less what a checkpoint cannot carry), on ``device`` or the device the
+        state names."""
+        if device is not None:
+            state["device"] = str(device)
+        state["_input_dtype"] = np.uint8 if state["_is_bit"] else np.float32
+        obj = cls.__new__(cls)
+        obj.__setstate__(state)
+        obj._set_distance_func()  # the metric functions a checkpoint does not carry
+        return obj
+
+    @classmethod
+    def load(cls, path, device=None):
+        """Load an index written by :meth:`save`, onto ``device`` (default:
+        the device it was saved from)."""
+        return cls._from_host_state(cls._read_checkpoint(path), device)

@@ -44,13 +44,33 @@ REVERSE_SAMPLE_SORT_MIN_N = 32768
 _INF = float("inf")
 
 
-def _resolve_rowwise_metric(metric, cast_candidates_f32: bool = False):
-    """fn(Q [b, d], C [b, m, d]) -> [b, m] distances. ``cast_candidates_f32``
-    upcasts gathered candidate rows stored in bfloat16."""
+def _resolve_rowwise_metric(metric, metric_kwds=None, cast_candidates_f32: bool = False):
+    """fn(Q [b, d], C [b, m, d]) -> [b, m] distances for a registry name or
+    a batched callable ``f(x, y, **metric_kwds)`` over ``[..., d]`` tensors.
+    ``cast_candidates_f32`` upcasts gathered candidate rows stored in
+    bfloat16. (The JAX package caches these closures for its trace cache;
+    eager code needs no cache.)"""
     dst.check_metric(metric)
+    kwds = dict(metric_kwds or {})
     if cast_candidates_f32:
-        return lambda Q, C: dst.pairwise_rowwise(metric, Q, C.to(torch.float32))
-    return lambda Q, C: dst.pairwise_rowwise(metric, Q, C)
+        return lambda Q, C: dst.pairwise_rowwise(metric, Q, C.to(torch.float32), **kwds)
+    return lambda Q, C: dst.pairwise_rowwise(metric, Q, C, **kwds)
+
+
+def _kernel_init_ok(metric, metric_kwds, X) -> bool:
+    """Whether the forest init runs through the ``leaf_allpairs`` kernel:
+    float32 data, a gram-form registry name and no metric keywords (JAX
+    ``_pallas_init_ok`` less its TPU-only limits). Everything else takes the
+    gather init."""
+    return (isinstance(metric, str) and metric in ik.KERNEL_METRICS and not metric_kwds
+            and X.dtype == torch.float32)
+
+
+def _sweep_ok(metric, metric_kwds, X) -> bool:
+    """Whether the locality phases may sweep with the ``window_topm`` kernel
+    (JAX ``_sweep_ok`` less its VMEM limits)."""
+    return (isinstance(metric, str) and metric in ik.KERNEL_METRICS and not metric_kwds
+            and X.dtype in (torch.float32, torch.bfloat16))
 
 
 def _long(t):
@@ -456,10 +476,12 @@ def nn_descent(
     n_neighbors: int,
     seed: int,
     *,
-    metric: str = "sqeuclidean",
+    metric="sqeuclidean",
+    metric_kwds=None,
     n_iters: int | None = None,
     delta: float = 0.001,
     max_candidates: int | None = None,
+    init_graph: NeighborState | None = None,
     forest=None,
     leaf_cap: int | None = None,
     block_rows: int = DEFAULT_BLOCK_ROWS,
@@ -472,7 +494,11 @@ def nn_descent(
     """Full NN-descent driver (JAX :877). Returns (indices i32[n, k],
     distances f32[n, k]) sorted ascending, as tensors on X's device.
 
-    ``forest`` is the init forest's ``(orders, starts, sizes)``.
+    ``metric`` is a registry name or a batched callable, ``metric_kwds`` its
+    keywords. ``init_graph`` is a warm ``NeighborState`` (updated in place)
+    instead of an empty one. ``forest`` is the init forest's ``(orders,
+    starts, sizes)``; it goes through the ``leaf_allpairs`` kernel when
+    ``_kernel_init_ok`` holds, else through the gather init.
     ``compute_dtype=torch.bfloat16`` joins on a bfloat16 copy of X and
     reranks the final graph exactly in fp32. ``locality`` as in the JAX
     package: None, "auto" (n >= 400k) or a dict."""
@@ -487,7 +513,7 @@ def nn_descent(
         hop2_new_samples = max_candidates
     if hop2_old_samples is None:
         hop2_old_samples = max(1, max_candidates // 2)
-    dist_rowwise = _resolve_rowwise_metric(metric)
+    dist_rowwise = _resolve_rowwise_metric(metric, metric_kwds)
     if leaf_cap is None:
         leaf_cap = 64
     # bound the join's [b, P, d] candidate tile (the build's peak
@@ -499,16 +525,16 @@ def nn_descent(
     tile_budget = 3 << 28 if n > (1 << 19) else (3 << 29)
     block_rows = int(max(512, min(block_rows, tile_budget // max(pool_w * d_bytes, 1))))
 
-    if compute_dtype is not None and X.dtype == torch.float32:
+    if compute_dtype is not None and X.dtype == torch.float32 and isinstance(metric, str):
         X_join = X.to(compute_dtype)
     else:
         X_join, compute_dtype = X, None
 
-    state = make_neighbor_state(n, k, device=dev)
+    state = init_graph if init_graph is not None else make_neighbor_state(n, k, device=dev)
 
     if forest is not None:
         orders, starts, sizes = forest
-        if X_join.dtype == torch.float32 and metric in ik.KERNEL_METRICS:
+        if _kernel_init_ok(metric, metric_kwds, X_join):
             state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=metric)
         else:
             T = int(orders.shape[0])
@@ -528,6 +554,13 @@ def nn_descent(
     if loc is not None:
         (W, phases, phase_iters, global_iters, refresh_flags, sweep_win, sweep_m,
          sweep_stagger) = loc
+        if sweep_win and not _sweep_ok(metric, metric_kwds, X_join):
+            # no sweep kernel for this metric: a sweep-only schedule becomes
+            # the windowed-join schedule, few phases of several iterations
+            sweep_win = 0
+            if phase_iters <= 0:
+                phase_iters = max(4, n_iters // 2)
+                phases = min(phases, 2)
         orders = forest[0]
         T = int(orders.shape[0])
         for ph in range(phases):

@@ -13,27 +13,32 @@ from pynndescent_torch.utils import rng
 FLOAT32_EPS = float(np.finfo(np.float32).eps)
 
 
-def _pair_dists_rowwise(metric, X, idx):
-    """D[b, k, k] distances between the neighbor vectors of each row:
-    gram form for the euclidean family, the named formulas otherwise."""
+def _pair_dists_rowwise(metric, X, idx, metric_kwds=None):
+    """D[b, k, k] distances between the neighbor vectors of each row: gram
+    form for the gram family, and for every other metric (a registry name
+    with or without keywords, or a callable) the broadcast formula over
+    ``[rows, k, k, d]`` tiles of bounded size."""
     V = X[torch.clamp(idx, min=0).to(torch.int64)]
-    g = torch.bmm(V, V.transpose(1, 2))
-    sq = torch.sum(V * V, dim=-1)
-    if metric in ("sqeuclidean", "euclidean", "l2"):
-        d2 = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * g, min=0.0)
-        return d2 if metric == "sqeuclidean" else torch.sqrt(d2)
-    return dst._from_gram_named(metric, g, sq[:, :, None], sq[:, None, :])
+    if isinstance(metric, str) and metric in dst.GRAM_METRICS and not metric_kwds:
+        g = torch.bmm(V, V.transpose(1, 2))
+        sq = torch.sum(V * V, dim=-1)
+        return dst._from_gram_named(metric, g, sq[:, :, None], sq[:, None, :])
+    fn = dst._resolve(metric, dict(metric_kwds or {}))
+    b, k, d = V.shape
+    rows = max(1, dst._BROADCAST_TILE_ELEMS // max(k * k * d, 1))
+    return torch.cat([fn(V[s:s + rows, :, None, :], V[s:s + rows, None, :, :])
+                      for s in range(0, b, rows)])
 
 
 def diversify_block(idx, dist, X, metric, prune_prob=1.0, gen=None, degrees=None,
-                    aggression=1.0):
+                    aggression=1.0, metric_kwds=None):
     """Occlusion-prune each row's sorted neighbor list (JAX prune.py:45).
     A later neighbor j is dropped when a kept earlier neighbor c with
     dist[c] > eps occludes it: d(x_c, x_j) < dist[j] (with probability
     ``prune_prob``; ``degrees`` scales the threshold degree-aware).
     Returns the keep mask bool[b, k]."""
     b, k = idx.shape
-    D = _pair_dists_rowwise(metric, X, idx)
+    D = _pair_dists_rowwise(metric, X, idx, metric_kwds)
     valid = idx >= 0
     if prune_prob < 1.0:
         if gen is None:
@@ -58,7 +63,7 @@ def diversify_block(idx, dist, X, metric, prune_prob=1.0, gen=None, degrees=None
 
 
 def diversify_all(idx, dist, X, metric, prune_prob=1.0, seed=0, degrees=None, aggression=1.0,
-                  block_rows=4096):
+                  block_rows=4096, metric_kwds=None):
     """Blocked diversify over all rows; returns the keep mask bool[n, k].
     Each block gathers a [b, k, d] neighbor tile, capped at ~512 MB."""
     n, k = idx.shape
@@ -69,7 +74,7 @@ def diversify_all(idx, dist, X, metric, prune_prob=1.0, seed=0, degrees=None, ag
     for blk, s0 in enumerate(block_starts(n, b)):
         gen = rng.generator(rng.derive_seed(seed, blk), idx.device) if prune_prob < 1.0 else None
         keep[s0:s0 + b] = diversify_block(idx[s0:s0 + b], dist[s0:s0 + b], X, metric,
-                                          prune_prob, gen, degrees, aggression)
+                                          prune_prob, gen, degrees, aggression, metric_kwds)
     return keep
 
 

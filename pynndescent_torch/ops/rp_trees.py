@@ -28,6 +28,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from pynndescent_torch.ops.distances import popcount_sum
+
 _M32 = 0xFFFFFFFF
 MIN_SPLIT_BALANCE = 0.1
 
@@ -102,9 +104,15 @@ def _level_directions(seed: int, max_depth: int, d: int, device="cpu"):
 def _tree_norms(X, angular):
     """Row norms in fp32 (of the bfloat16 values for a bfloat16 ``X``: the
     JAX package's jitted code keeps that arithmetic in fp32)."""
-    if not angular:
+    if not angular or X.dtype == torch.uint8:
         return torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
     return torch.linalg.vector_norm(X, dim=-1, dtype=torch.float32)
+
+
+def _bit_margin(x, xa, xb):
+    """Signed closest-anchor margin for bit-packed rows: popcount(x ^ xb) -
+    popcount(x ^ xa); positive means x is closer to anchor a."""
+    return (popcount_sum(x ^ xb) - popcount_sum(x ^ xa)).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -178,13 +186,20 @@ def _fast_forest_orders(X, seeds, leaf_size: int, max_depth: int, angular: bool)
     return order, start, size
 
 
-def build_forest_orders(X, seeds, leaf_size: int, max_depth: int, angular: bool = False):
+def build_forest_orders(X, seeds, leaf_size: int, max_depth: int, angular: bool = False,
+                        fast: bool = True):
     """Init forest over per-tree seeds -> ``(order, start, size)`` [T, n]
-    (the fast branch of JAX rp_trees.py:495). Mean splits are near
-    balanced, so the depth is the ideal one plus a small slack."""
+    (JAX rp_trees.py:495). Float data takes the fast level-shared-projection
+    splits: mean splits are near balanced, so the depth is the ideal one plus
+    a small slack. Bit-packed (``uint8``) rows have no projections: each tree
+    is built by ``build_tree_order`` with random anchor pairs under the
+    popcount margin, one tree after the other."""
     n = X.shape[0]
-    depth = min(max_depth, int(np.ceil(np.log2(max(n / max(leaf_size, 1), 1.0)))) + 4)
-    return _fast_forest_orders(X, seeds, leaf_size, depth, angular)
+    if fast and X.dtype != torch.uint8:
+        depth = min(max_depth, int(np.ceil(np.log2(max(n / max(leaf_size, 1), 1.0)))) + 4)
+        return _fast_forest_orders(X, seeds, leaf_size, depth, angular)
+    outs = [build_tree_order(X, int(s), leaf_size, max_depth, angular) for s in seeds]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +239,39 @@ def _hub_anchor_points(order, start, size, degrees, n):
     )
 
 
+def _edge_cut_scores(order, start, sides, neighbor_idx, n):
+    """Per-position edge-cut count of each candidate split (JAX :153): the
+    number of directed graph edges (i -> j) with both endpoints in the
+    position's node whose endpoints land on opposite sides. ``sides`` is
+    [3, n] per position; returns [3, n] cut counts broadcast back to
+    positions. The counts are integer scatter-adds, so the result does not
+    depend on the order of the additions."""
+    o = order.to(torch.int64)
+    node_of_id = torch.zeros(n, dtype=torch.int64, device=order.device)
+    node_of_id[o] = start.to(torch.int64)
+    nb = neighbor_idx.to(torch.int64)
+    nb_safe = torch.clamp(nb, 0, n - 1)
+    same_node = (nb >= 0) & (node_of_id[nb_safe] == node_of_id[:, None])
+    node_rows = node_of_id[:, None].expand(nb.shape).reshape(-1)
+    cuts = []
+    for c in range(sides.shape[0]):
+        side_id = torch.zeros(n, dtype=torch.bool, device=order.device)
+        side_id[o] = sides[c]
+        cut_edge = same_node & (side_id[nb_safe] != side_id[:, None])
+        table = torch.zeros(n, dtype=torch.int32, device=order.device)
+        table.index_add_(0, node_rows, cut_edge.reshape(-1).to(torch.int32))
+        cuts.append(table[start.to(torch.int64)])
+    return torch.stack(cuts)
+
+
 def _anchor_scores(X, norms, x, pts, angular):
     """Per-point score against anchor ids ``pts``; a pair's hyperplane
     margin is ``s_a - s_b``. Dense euclidean: <x, xa> - |xa|^2 / 2;
-    angular: <x, xa> / |xa|. Computed in fp32 (from the bfloat16 values of
-    a bfloat16 ``X``, as the jitted JAX code does)."""
+    angular: <x, xa> / |xa|; bit-packed: -hamming(x, xa), the closest-anchor
+    assignment. Computed in fp32 (from the bfloat16 values of a bfloat16
+    ``X``, as the jitted JAX code does)."""
+    if X.dtype == torch.uint8:
+        return -popcount_sum(x ^ X[pts.to(torch.int64)]).to(torch.float32)
     xa = X[pts.to(torch.int64)].to(torch.float32)
     x = x.to(torch.float32)
     d = torch.sum(x * xa, dim=-1)
@@ -238,10 +281,13 @@ def _anchor_scores(X, norms, x, pts, angular):
 
 
 def _split_level(X, norms, order, start, size, level, seed, leaf_size, angular,
-                 degrees=None, sealed=None):
+                 degrees=None, sealed=None, neighbor_idx=None):
     """Split every active node at one level (JAX rp_trees.py:207): random
-    anchor pairs, or with ``degrees`` the dense hub splits (best-balanced of
-    the three hub pairs; nodes below MIN_SPLIT_BALANCE seal as leaves).
+    anchor pairs, or with ``degrees`` the hub splits. Dense float data keeps
+    the best-balanced of the three hub pairs (nodes below MIN_SPLIT_BALANCE
+    seal as leaves); bit-packed data with ``neighbor_idx`` keeps the pair of
+    fewest graph edge cuts among those with two non-empty sides, and falls
+    back to the coin when all three are degenerate.
     Returns ``(order, start, size, sealed), (a_pt, b_pt)``."""
     n = X.shape[0]
     dev = X.device
@@ -261,24 +307,41 @@ def _split_level(X, norms, order, start, size, level, seed, leaf_size, angular,
         s1, s2, s3 = (_anchor_scores(X, norms, x, h, angular) for h in (h1, h2, h3))
         pairs = ((h1, h2, s1, s2), (h1, h3, s1, s3), (h2, h3, s2, s3))
         sides = torch.stack([side_of(sa - sb) for _, _, sa, sb in pairs])
-        prefixes, totals = _segment_cumsum_stats((~sides).to(torch.int32), start, size)
-        bals = torch.minimum(totals, size - totals).to(torch.float32) / torch.clamp(
-            size, min=1).to(torch.float32)
-        best = torch.argmax(bals, dim=0)[None]
+        apts = torch.stack([p[0] for p in pairs])
+        bpts = torch.stack([p[1] for p in pairs])
 
-        def take(a):
-            return torch.gather(a, 0, best)[0]
+        def take(a, which):
+            return torch.gather(a, 0, which[None])[0]
 
-        side = take(sides)
-        best_bal = take(bals)
-        rank_left = take(prefixes)
-        n_left = take(totals)
-        a_pt = take(torch.stack([p[0] for p in pairs]))
-        b_pt = take(torch.stack([p[1] for p in pairs]))
-        newly_sealed = (~done) & (best_bal < MIN_SPLIT_BALANCE)
-        sealed = sealed | newly_sealed
-        done = done | newly_sealed
-        side = torch.where(done, false, side)
+        if neighbor_idx is not None and X.dtype == torch.uint8:
+            # candidate 3 is the pure coin assignment
+            cand_sides = torch.cat([sides, torch.where(done, false, coin)[None]])
+            prefixes, totals = _segment_cumsum_stats((~cand_sides).to(torch.int32), start, size)
+            cuts = _edge_cut_scores(order, start, sides, neighbor_idx, n)
+            valid = (totals[:3] > 0) & (totals[:3] < size)
+            score = torch.where(valid, cuts, torch.full_like(cuts, torch.iinfo(torch.int32).max))
+            best = torch.argmin(score, dim=0)
+            best = torch.where(valid.any(dim=0), best, torch.full_like(best, 3))
+            side = torch.where(done, false, take(cand_sides, best))
+            rank_left = take(prefixes, best)
+            n_left = take(totals, best)
+            a_pt = take(apts, torch.clamp(best, max=2))
+            b_pt = take(bpts, torch.clamp(best, max=2))
+        else:
+            prefixes, totals = _segment_cumsum_stats((~sides).to(torch.int32), start, size)
+            bals = torch.minimum(totals, size - totals).to(torch.float32) / torch.clamp(
+                size, min=1).to(torch.float32)
+            best = torch.argmax(bals, dim=0)
+            side = take(sides, best)
+            best_bal = take(bals, best)
+            rank_left = take(prefixes, best)
+            n_left = take(totals, best)
+            a_pt = take(apts, best)
+            b_pt = take(bpts, best)
+            newly_sealed = (~done) & (best_bal < MIN_SPLIT_BALANCE)
+            sealed = sealed | newly_sealed
+            done = done | newly_sealed
+            side = torch.where(done, false, side)
     else:
         a_off = _hash_mod(seed, level * 2 + 1, start, size)
         b_off = _hash_mod(seed, level * 2 + 2, start, torch.clamp(size - 1, min=1))
@@ -313,8 +376,31 @@ def _split_level(X, norms, order, start, size, level, seed, leaf_size, angular,
     return out, (a_pt.to(torch.int32), b_pt.to(torch.int32))
 
 
+def build_tree_order(X, seed: int, leaf_size: int, max_depth: int, angular: bool = False,
+                     degrees=None, neighbor_idx=None):
+    """Build one exact-split tree and return its node-location encoding
+    ``(order, start, size)`` i32[n] (JAX rp_trees.py:348): random anchor
+    pairs, or with ``degrees`` the hub splits. Used for the init forest of
+    bit-packed data and to score candidate search trees. Stops at the first
+    level where every node is a leaf (one host sync a level)."""
+    n = X.shape[0]
+    dev = X.device
+    norms = _tree_norms(X, angular)
+    order = torch.arange(n, dtype=torch.int32, device=dev)
+    start = torch.zeros(n, dtype=torch.int32, device=dev)
+    size = torch.full((n,), n, dtype=torch.int32, device=dev)
+    sealed = torch.zeros(n, dtype=torch.bool, device=dev)
+    for level in range(max_depth):
+        if not bool(((size > leaf_size) & ~sealed).any()):
+            break
+        (order, start, size, sealed), _ = _split_level(
+            X, norms, order, start, size, level, seed, leaf_size, angular,
+            degrees=degrees, sealed=sealed, neighbor_idx=neighbor_idx)
+    return order, start, size
+
+
 def build_tree_trace(X, seed: int, leaf_size: int, max_depth: int, angular: bool = False,
-                     degrees=None):
+                     degrees=None, neighbor_idx=None):
     """Build one exact-split tree and return, per level, the node table the
     host flattener needs (JAX rp_trees.py:635): ``order`` and lists
     ``head_pos``/``head_size`` (depth + 1 entries) and ``head_a``/``head_b``
@@ -338,7 +424,7 @@ def build_tree_trace(X, seed: int, leaf_size: int, max_depth: int, angular: bool
         hp, hs = compact(start, size)
         (order, new_start, new_size, sealed), (a_pt, b_pt) = _split_level(
             X, norms, order, start, size, level, seed, leaf_size, angular,
-            degrees=degrees, sealed=sealed,
+            degrees=degrees, sealed=sealed, neighbor_idx=neighbor_idx,
         )
         head_pos.append(hp.cpu().numpy())
         head_size.append(hs.cpu().numpy())
@@ -358,10 +444,13 @@ class FlatTree:
     child      i32[n_nodes, 2] children (leaves self-loop)
     leaf_lo/hi i32[n_nodes] leaf slice into tree_order (-1 for internal)
     tree_order i32[n] points grouped by leaf
+    hyper, offset  optional materialized hyperplanes f32[n_nodes, d] and
+               offsets f32[n_nodes], for an index whose float data is not
+               available at query time (quantized indexes)
     """
 
     def __init__(self, a_pt, b_pt, child, leaf_lo, leaf_hi, tree_order, depth, angular,
-                 leaf_size=0):
+                 leaf_size=0, hyper=None, offset=None):
         self.a_pt = np.asarray(a_pt, np.int32)
         self.b_pt = np.asarray(b_pt, np.int32)
         self.child = np.asarray(child, np.int32)
@@ -371,33 +460,40 @@ class FlatTree:
         self.depth = int(depth)
         self.angular = bool(angular)
         self.leaf_size = int(leaf_size)
+        self.hyper = None if hyper is None else np.asarray(hyper, np.float32)
+        self.offset = None if offset is None else np.asarray(offset, np.float32)
 
     def to_arrays(self):
         """Same dict layout as the JAX ``FlatTree.to_arrays``."""
-        return dict(
+        d = dict(
             a_pt=self.a_pt, b_pt=self.b_pt, child=self.child, leaf_lo=self.leaf_lo,
             leaf_hi=self.leaf_hi, tree_order=self.tree_order, depth=self.depth,
             angular=self.angular, leaf_size=self.leaf_size,
         )
+        if self.hyper is not None:
+            d["hyper"] = self.hyper
+            d["offset"] = self.offset
+        return d
 
     @classmethod
     def from_arrays(cls, d):
-        if d.get("hyper") is not None:
-            raise NotImplementedError(
-                "materialized hyperplanes (quantized indexes) are not ported yet (ROADMAP A12)")
         return cls(d["a_pt"], d["b_pt"], d["child"], d["leaf_lo"], d["leaf_hi"],
-                   d["tree_order"], d["depth"], d["angular"], d.get("leaf_size", 0))
+                   d["tree_order"], d["depth"], d["angular"], d.get("leaf_size", 0),
+                   hyper=d.get("hyper"), offset=d.get("offset"))
 
 
 def flatten_search_tree(X, seed: int, leaf_size: int, max_depth: int | None = None,
-                        angular: bool = False, degrees=None) -> FlatTree:
+                        angular: bool = False, materialize: bool = False, degrees=None,
+                        neighbor_idx=None) -> FlatTree:
     """Build one search tree on the device and flatten it on the host into
-    query-descent arrays (JAX rp_trees.py:697, same breadth-first walk)."""
+    query-descent arrays (JAX rp_trees.py:697, same breadth-first walk).
+    With ``materialize`` the per-node hyperplanes and offsets are stored, so
+    that the descent does not need the float data (quantized indexes)."""
     n = X.shape[0]
     if max_depth is None:
         max_depth = forest_depth(n, leaf_size)
     order, head_pos, head_size, head_a, head_b = build_tree_trace(
-        X, seed, leaf_size, max_depth, angular, degrees=degrees)
+        X, seed, leaf_size, max_depth, angular, degrees=degrees, neighbor_idx=neighbor_idx)
     hub = degrees is not None
 
     def lookup(level, s):
@@ -450,20 +546,84 @@ def flatten_search_tree(X, seed: int, leaf_size: int, max_depth: int | None = No
         a_pt[i] = int(head_a[level][j_here])
         b_pt[i] = int(head_b[level][j_here])
         child[i] = [node_id(level + 1, s, n_left), node_id(level + 1, s + n_left, sz - n_left)]
-    return FlatTree(a_pt, b_pt, child, leaf_lo, leaf_hi, order, max_depth, angular, leaf_size)
+    hyper = offset = None
+    if materialize:
+        hyper, offset = materialize_hyperplanes(X, a_pt, b_pt, angular)
+    return FlatTree(a_pt, b_pt, child, leaf_lo, leaf_hi, order, max_depth, angular, leaf_size,
+                    hyper=hyper, offset=offset)
+
+
+def materialize_hyperplanes(X, a_pt, b_pt, angular: bool):
+    """Per-node hyperplanes f32[n_nodes, d] and offsets f32[n_nodes] of the
+    anchor pairs (JAX rp_trees.py:791): a query's margin is
+    ``<q, hyper> - offset``. The anchor rows are gathered on X's device;
+    the few hyperplanes are formed on the host in numpy, as the JAX package
+    forms them."""
+    a = torch.as_tensor(np.asarray(a_pt, np.int64), device=X.device)
+    b = torch.as_tensor(np.asarray(b_pt, np.int64), device=X.device)
+    xa = X[a].to(torch.float32).cpu().numpy()
+    xb = X[b].to(torch.float32).cpu().numpy()
+    if angular:
+        na = np.maximum(np.linalg.norm(xa, axis=1, keepdims=True), 1e-8)
+        nb = np.maximum(np.linalg.norm(xb, axis=1, keepdims=True), 1e-8)
+        hyper = (xa / na - xb / nb).astype(np.float32)
+        offset = np.zeros(len(xa), np.float32)
+    else:
+        hyper = (xa - xb).astype(np.float32)
+        offset = np.sum(hyper * (xa + xb) * 0.5, axis=1).astype(np.float32)
+    return hyper, offset
 
 
 def descend_tree(tree, X, queries, coins, depth: int, angular: bool = False):
     """Vectorised query descent (JAX rp_trees.py:821). ``tree`` holds the
     FlatTree arrays as tensors on the queries' device; ``coins`` int64
-    [q] carry 32 tie-break bits. Returns (leaf_lo, leaf_hi) [q]."""
+    [q] carry 32 tie-break bits. A tree with materialized ``hyper`` /
+    ``offset`` is descended by them and ``X`` is not read. Returns (leaf_lo,
+    leaf_hi) [q]."""
     q = queries.shape[0]
     node = torch.zeros(q, dtype=torch.int64, device=queries.device)
-    norms = _tree_norms(X, True) if angular else None
+    has_planes = tree.get("hyper") is not None
+    norms = _tree_norms(X, True) if angular and not has_planes else None
     for level in range(depth):
-        margin = _anchor_scores(X, norms, queries, tree["a_pt"][node], angular) - _anchor_scores(
-            X, norms, queries, tree["b_pt"][node], angular)
+        if has_planes:
+            margin = torch.sum(queries * tree["hyper"][node], dim=-1) - tree["offset"][node]
+        else:
+            margin = _anchor_scores(X, norms, queries, tree["a_pt"][node], angular) - \
+                _anchor_scores(X, norms, queries, tree["b_pt"][node], angular)
         coin = ((coins >> (level % 32)) & 1).to(torch.bool)
         side = torch.where(margin > 0, True, torch.where(margin < 0, False, coin))
         node = tree["child"][node, side.to(torch.int64)].to(torch.int64)
     return tree["leaf_lo"][node], tree["leaf_hi"][node]
+
+
+def _np(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def score_tree(order, start, size, neighbor_indices):
+    """Fraction of graph edges whose endpoints share a leaf (JAX
+    rp_trees.py:890): the quality measure for choosing among candidate search
+    trees. Unfilled slots (-1) count as misses."""
+    order, start, neighbor_indices = _np(order), _np(start), _np(neighbor_indices)
+    n = neighbor_indices.shape[0]
+    leaf_of = np.empty(n, np.int64)
+    leaf_of[order] = start  # a leaf's id is its slice start
+    valid = neighbor_indices >= 0
+    safe = np.clip(neighbor_indices, 0, n - 1)
+    hits = valid & (leaf_of[safe] == leaf_of[:, None])
+    return float(hits.sum() / max(valid.sum(), 1))
+
+
+def score_linked_tree(tree_arrays, neighbor_indices):
+    """``score_tree`` over a flattened search tree (JAX rp_trees.py:909)."""
+    order = _np(tree_arrays["tree_order"])
+    lo, hi = _np(tree_arrays["leaf_lo"]), _np(tree_arrays["leaf_hi"])
+    neighbor_indices = _np(neighbor_indices)
+    n = order.shape[0]
+    leaf_of = np.full(n, -1, np.int64)
+    for node in np.nonzero(lo >= 0)[0]:
+        leaf_of[order[lo[node]:hi[node]]] = node
+    valid = neighbor_indices >= 0
+    safe = np.clip(neighbor_indices, 0, n - 1)
+    hits = valid & (leaf_of[safe] == leaf_of[np.arange(len(neighbor_indices))][:, None])
+    return float(hits.sum() / max(valid.sum(), 1))

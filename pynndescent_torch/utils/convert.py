@@ -1,8 +1,9 @@
 """Carry state built by the JAX package over to the port.
 
 The tests use this to run the port's query on exactly the graph and tree the
-JAX package built. Inputs are plain numpy arrays, so this module imports
-nothing of JAX.
+JAX package built. Inputs are plain numpy arrays, or a ``.npz`` file that the
+JAX package's ``save()`` wrote, read with ``numpy.load`` alone: this module
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -10,11 +11,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pynndescent_torch.models import search as search_ops
-from pynndescent_torch.models.nndescent import NNDescent, _resolve_device
+from pynndescent_torch.models.nndescent import NNDescent
 from pynndescent_torch.ops import rp_trees
 from pynndescent_torch.ops.neighbors import NeighborState
-from pynndescent_torch.utils.profiling import PhaseTimer
+
+# attributes that exist only in the JAX package's state
+_JAX_ONLY = ("_key", "_incomplete_dev", "_graph_exact", "_graph_exact_ot", "_visited", "_build_k",
+             "_ell", "_sketch", "_ell_store", "_ell_internal_name", "devices", "shard_data",
+             "_quantized_codes_dev", "_mesh")
 
 
 def _tensor(a, dtype, device):
@@ -32,39 +36,64 @@ def index_from_arrays(arrays: dict, device="cuda", search_dtype="bfloat16",
     """A port ``NNDescent`` ready to query, from a dict of numpy arrays:
 
     * ``data`` — the index's data as the JAX index stores it
-      (``_raw_data``: float32, rows already normalized for ``dot``);
+      (``_raw_data``: float32, rows already normalized for ``dot``; ``uint8``
+      rows of a bit index);
     * ``neighbor_graph`` — the internal ``(indices, distances)``
       (``_neighbor_graph``, distances in the internal metric);
     * ``search_graph`` — ``_search_graph``;
-    * ``search_tree`` — ``_search_tree`` (the ``FlatTree.to_arrays()`` dict);
+    * ``search_tree`` — ``_search_tree`` (the ``FlatTree.to_arrays()`` dict,
+      with ``hyper`` / ``offset`` for a quantized index);
     * ``min_distance`` — ``_min_distance``;
     * ``metric`` — the index's metric name;
-    * optionally ``n_neighbors`` (default: the graph's width).
+    * optionally ``metric_kwds``, ``n_neighbors`` (default: the graph's
+      width) and ``quantized`` (``_quantized``: ``mode``, ``codes`` and, but
+      for binary, ``codebook``).
     """
-    dev = _resolve_device(device)
-    data = np.ascontiguousarray(np.asarray(arrays["data"], np.float32))
+    metric = arrays["metric"]
+    is_bit = metric in ("bit_hamming", "bit_jaccard")
+    data = np.ascontiguousarray(np.asarray(arrays["data"], np.uint8 if is_bit else np.float32))
     gi, gd = arrays["neighbor_graph"]
-    self = NNDescent.__new__(NNDescent)
-    self.device = dev
-    self.metric = arrays["metric"]
-    self.metric_kwds = {}
-    self.n_neighbors = int(arrays.get("n_neighbors", np.asarray(gi).shape[1]))
-    self.dim = data.shape[1]
-    self.search_dtype = search_dtype
-    self.beam_width = None
-    self.verbose = False
-    self.random_state = random_state
-    self._root_seed = int(random_state)
-    self._timer = PhaseTimer(False, dev)
-    self._angular_trees = self.metric in ("cosine", "dot")
-    self._set_distance_func()
-    self._raw_data = data
-    self._X = torch.from_numpy(data).to(dev)
-    self._neighbor_graph = (_tensor(gi, np.int32, dev), _tensor(gd, np.float32, dev))
-    self._warned_incomplete = False
-    self._search_graph = _tensor(arrays["search_graph"], np.int32, dev)
-    self._min_distance = float(arrays["min_distance"])
-    self._search_tree = rp_trees.FlatTree.from_arrays(arrays["search_tree"]).to_arrays()
-    self._tree_dev = search_ops.tree_to_device(self._search_tree, dev)
-    self._make_search_copy()
-    return self
+    quantized = arrays.get("quantized")
+    if quantized is not None:
+        quantized = {k: (v if isinstance(v, str) else np.ascontiguousarray(v))
+                     for k, v in quantized.items()}
+    state = dict(
+        metric=metric,
+        metric_kwds=dict(arrays.get("metric_kwds") or {}),
+        n_neighbors=int(arrays.get("n_neighbors", np.asarray(gi).shape[1])),
+        dim=data.shape[1],
+        search_dtype=search_dtype,
+        beam_width=None,
+        verbose=False,
+        profile=False,
+        compressed=False,
+        random_state=random_state,
+        quantization=None if quantized is None else quantized["mode"],
+        _root_seed=int(random_state),
+        _is_bit=is_bit,
+        _raw_data=data,
+        _neighbor_graph=(np.array(gi, np.int32), np.array(gd, np.float32)),
+        _warned_incomplete=False,
+        _search_graph=np.array(arrays["search_graph"], np.int32),
+        _min_distance=float(arrays["min_distance"]),
+        _search_tree=rp_trees.FlatTree.from_arrays(arrays["search_tree"]).to_arrays(),
+        _quantized=quantized,
+    )
+    return NNDescent._from_host_state(state, device)
+
+
+def index_from_checkpoint(path, device="cuda") -> NNDescent:
+    """A port ``NNDescent`` that answers queries, from a ``.npz`` written by
+    the JAX package's ``NNDescent.save()`` (flat arrays by attribute path
+    plus the ``__meta__`` JSON). The JAX-only entries (the threefry key,
+    mesh and sparse-path attributes) are dropped; the root seed is kept. A
+    file of a wide-sparse (padded-ELL or sketch) index raises
+    ``NotImplementedError``."""
+    state = NNDescent._read_checkpoint(path)
+    if state.get("_ell") is not None or state.get("_sketch") is not None:
+        raise NotImplementedError(
+            "checkpoints of wide sparse indexes are not ported to the PyTorch package yet "
+            "(ROADMAP A12)")
+    for key in _JAX_ONLY:
+        state.pop(key, None)
+    return NNDescent._from_host_state(state, device)

@@ -211,3 +211,82 @@ def test_slice_on_the_card_matches_cpu(cuda_device):
         index = NNDescent(train, n_neighbors=10, random_state=42, device=device)
         assert recall(index.neighbor_graph[0], g_true) >= 0.98
         assert recall(index.query(queries, k=10, epsilon=0.2)[0], q_true) >= 0.95
+
+
+# ---------------------------------------------------------------------------
+# the dense surface on the card: non-gram metrics, bit rows, serialization
+# ---------------------------------------------------------------------------
+
+
+def _l1_knn(X, k):
+    return np.argsort(np.abs(X[:, None] - X[None]).sum(-1), axis=1, kind="stable")[:, :k]
+
+
+def test_manhattan_build_on_card_matches_cpu_and_launches_no_kernel(cuda_device):
+    X = clustered(1500, 16, seed=5)
+    truth = _l1_knn(X, 10)
+    ik.reset_launch_counts()
+    on_card = NNDescent(X, metric="manhattan", n_neighbors=10, random_state=42, device="cuda")
+    gi, gd = on_card.neighbor_graph
+    assert ik.LAUNCHES["leaf_allpairs"] == 0 and ik.LAUNCHES["window_topm"] == 0
+    on_cpu = NNDescent(X, metric="manhattan", n_neighbors=10, random_state=42, device="cpu")
+    assert abs(recall(gi, truth) - recall(on_cpu.neighbor_graph[0], truth)) <= 0.01
+    assert recall(gi, truth) >= 0.95
+    np.testing.assert_allclose(gd, np.abs(X[gi] - X[:, None]).sum(-1), rtol=1e-5, atol=1e-5)
+
+
+def test_bit_hamming_build_on_card_matches_cpu(cuda_device):
+    rs = np.random.RandomState(2)
+    protos = rs.randint(0, 2, (20, 128))
+    raw = (protos[rs.randint(0, 20, 1500)] ^ (rs.uniform(size=(1500, 128)) < 0.1)).astype(np.uint8)
+    packed = np.packbits(raw, axis=1)
+    D = (raw[:, None, :] != raw[None, :, :]).sum(-1)
+    kth = np.sort(D, axis=1)[:, 9:10]
+
+    def tie_recall(index):  # integer distances tie: a distance within the k-th exact one is a hit
+        gi, gd = index.neighbor_graph
+        np.testing.assert_array_equal(gd, np.take_along_axis(D, gi, 1).astype(np.float32))
+        return float(np.mean(gd <= kth))
+
+    ik.reset_launch_counts()
+    on_card = NNDescent(packed, metric="bit_hamming", n_neighbors=10, random_state=42,
+                        device="cuda")
+    assert ik.LAUNCHES["leaf_allpairs"] == 0
+    on_cpu = NNDescent(packed, metric="bit_hamming", n_neighbors=10, random_state=42,
+                       device="cpu")
+    assert abs(tie_recall(on_card) - tie_recall(on_cpu)) <= 0.01 and tie_recall(on_card) >= 0.9
+
+
+def test_pickle_and_load_on_card(cuda_device, tmp_path):
+    import pickle
+
+    X = clustered(2200, 16, seed=6)
+    train, queries = X[:2000], X[2000:]
+    index = NNDescent(train, n_neighbors=10, random_state=42, device="cuda", quantization="uint8")
+    before = index.query(queries, k=10, epsilon=0.2)
+    state = index.__getstate__()
+    assert state["device"] == "cuda" and not any(
+        isinstance(v, torch.Tensor) for v in state.values())
+    again = pickle.loads(pickle.dumps(index))
+    assert again._X.device.type == "cuda" and again._quantized_codes_dev.device.type == "cuda"
+    after = again.query(queries, k=10, epsilon=0.2)
+    np.testing.assert_array_equal(before[0], after[0])
+    np.testing.assert_array_equal(before[1], after[1])
+    path = str(tmp_path / "index.npz")
+    index.save(path)
+    loaded = NNDescent.load(path)  # the device it was saved from
+    assert loaded._X.device.type == "cuda"
+    np.testing.assert_array_equal(loaded.query(queries, k=10, epsilon=0.2)[0], before[0])
+    on_cpu = NNDescent.load(path, device="cpu")
+    assert on_cpu._X.device.type == "cpu"
+    assert recall(on_cpu.query(queries, k=10, epsilon=0.2)[0], exact_knn(train, queries, 10)) >= 0.85
+
+
+def test_update_on_card_launches_the_small_forest(cuda_device):
+    X = clustered(3300, 16, seed=7)
+    index = NNDescent(X[:3000], n_neighbors=10, random_state=42, device="cuda")
+    ik.reset_launch_counts()
+    index.update(xs_fresh=X[3000:])
+    assert ik.LAUNCHES["leaf_allpairs"] == index.n_trees_after_update
+    assert index._X.shape[0] == 3300 and index._X.device.type == "cuda"
+    assert recall(index.neighbor_graph[0], exact_knn(X, X, 10)) >= 0.95

@@ -1,4 +1,5 @@
-"""Parity of the port's gram-form distances with the JAX package.
+"""Parity of the port's gram-form distances with the JAX package (every
+registry key: test_torch_metrics.py).
 
 Tolerance: both compute the same fp32 formulas with different summation
 orders (XLA vs torch). Products of length d = 20 with entries ~N(0, 1) have
@@ -70,7 +71,13 @@ def test_fast_alternatives_and_corrections(metric):
 
 
 def test_other_metrics_raise():
-    with pytest.raises(NotImplementedError, match="A12"):
-        td.pairwise("manhattan", t(np.zeros((2, 3), np.float32)))
-    with pytest.raises(NotImplementedError, match="A12"):
-        td.check_metric(lambda x, y: x)
+    """The exact optimal-transport names are the ones still to be ported;
+    an unknown name is a ValueError, a callable passes."""
+    for name in ("kantorovich", "wasserstein", "sinkhorn"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            td.pairwise(name, t(np.zeros((2, 3), np.float32)))
+        with pytest.raises(NotImplementedError, match="A12"):
+            td.check_metric(name)
+    with pytest.raises(ValueError, match="not recognized"):
+        td.check_metric("no_such_metric")
+    td.check_metric(lambda x, y: x)

@@ -152,3 +152,152 @@ def test_tree_defaults_match_jax():
     for m in (10, 1000, 100_000, 10**7):
         assert tr.default_n_trees(m) == jr.default_n_trees(m)
         assert tr.forest_depth(m, 60) == jr.forest_depth(m, 60)
+
+
+# ---------------------------------------------------------------------------
+# bit-packed rows, edge-cut hub splits, tree scores, materialized hyperplanes
+# ---------------------------------------------------------------------------
+
+
+def _bit_rows(n_pts, n_bytes, seed):
+    """Clustered bit rows: a few random prototypes with a tenth of the bits
+    flipped, so that the kNN graph has structure."""
+    rs = np.random.RandomState(seed)
+    protos = rs.randint(0, 2, (12, n_bytes * 8))
+    raw = protos[rs.randint(0, 12, n_pts)] ^ (rs.uniform(size=(n_pts, n_bytes * 8)) < 0.1)
+    return np.packbits(raw.astype(np.uint8), axis=1)
+
+
+def _bit_graph(B, k):
+    D = np.unpackbits(B[:, None, :] ^ B[None, :, :], axis=-1).sum(-1)
+    return np.argsort(D, axis=1, kind="stable")[:, :k].astype(np.int32)
+
+
+def test_bit_margin_matches_jax():
+    rs = np.random.RandomState(6)
+    x, xa, xb = (rs.randint(0, 256, (50, 9)).astype(np.uint8) for _ in range(3))
+    xb[:5] = xa[:5]  # zero margins
+    want = n(jr._bit_margin(jnp.asarray(x), jnp.asarray(xa), jnp.asarray(xb)))
+    got = n(tr._bit_margin(t(x), t(xa), t(xb)))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    # the margin is the difference of the two anchor scores
+    X = np.concatenate([x, xa, xb])
+    a, b = np.arange(50, 100), np.arange(100, 150)
+    sa = tr._anchor_scores(t(X), None, t(x), t(a), False)
+    sb = tr._anchor_scores(t(X), None, t(x), t(b), False)
+    np.testing.assert_array_equal(n(sa - sb), got)
+
+
+def test_edge_cut_scores_match_jax():
+    rs = np.random.RandomState(7)
+    m = 60
+    order = rs.permutation(m).astype(np.int32)
+    start = np.repeat(np.array([0, 25, 45], np.int32), [25, 20, 15])
+    sides = rs.uniform(size=(3, m)) < 0.5
+    graph = rs.randint(-1, m, (m, 6)).astype(np.int32)  # some empty slots
+    want = n(jr._edge_cut_scores(jnp.asarray(order), jnp.asarray(start), jnp.asarray(sides),
+                                 jnp.asarray(graph), m))
+    got = n(tr._edge_cut_scores(t(order), t(start), t(sides), t(graph), m))
+    np.testing.assert_array_equal(got, want)
+    assert want.max() > 0
+
+
+def test_score_tree_matches_jax():
+    X = clustered(700, 10, seed=2)
+    graph = np.random.RandomState(3).randint(-1, 700, (700, 7)).astype(np.int32)
+    graph[:, :4] = np.argsort(((X[:, None] - X[None]) ** 2).sum(-1), axis=1)[:, :4]
+    o, s, z = tr.build_tree_order(t(X), 17, 30, tr.forest_depth(700, 30))
+    assert tr.score_tree(o, s, z, t(graph)) == jr.score_tree(n(o), n(s), n(z), graph)
+    flat = tr.flatten_search_tree(t(X), 17, leaf_size=30).to_arrays()
+    score = tr.score_linked_tree(flat, graph)
+    assert score == jr.score_linked_tree(flat, graph)
+    # the flattened tree of a seed has the leaves of its node-location encoding
+    assert score == pytest.approx(tr.score_tree(o, s, z, graph))
+    assert 0.2 < score < 1.0
+
+
+@pytest.mark.parametrize("hub", [False, True])
+def test_build_tree_order_matches_jax(hub):
+    X = clustered(900, 12, seed=4)
+    degrees = np.random.RandomState(5).randint(1, 40, 900).astype(np.int32) if hub else None
+    depth = tr.forest_depth(900, 30)
+    want = jr.build_tree_order(jnp.asarray(X), jnp.uint32(21), 30, depth,
+                               degrees=None if degrees is None else jnp.asarray(degrees))
+    got = tr.build_tree_order(t(X), 21, 30, depth, degrees=None if degrees is None else t(degrees))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), n(w))
+
+
+def test_bit_forest_leaves_partition_the_rows():
+    B = _bit_rows(800, 8, seed=1)
+    seeds = [5, 6]
+    depth = tr.forest_depth(800, 30)
+    to, ts, tz = tr.build_forest_orders(t(B), seeds, 30, depth, angular=True)
+    jo, js, jz = jr.build_forest_orders(jnp.asarray(B), jnp.asarray(seeds, jnp.uint32), 30, depth,
+                                        angular=True)
+    pos = np.arange(800)
+    for i in range(2):
+        o, s, z = n(to[i]), n(ts[i]), n(tz[i])
+        assert sorted(o.tolist()) == list(range(800))
+        assert np.all((s <= pos) & (pos < s + z)) and z.max() <= 30
+        # integer margins and integer hashes: the same tree as the JAX package
+        np.testing.assert_array_equal(o, n(jo[i]))
+        np.testing.assert_array_equal(s, n(js[i]))
+        np.testing.assert_array_equal(z, n(jz[i]))
+
+
+def test_bit_hub_tree_with_edge_cuts_matches_jax():
+    B = _bit_rows(600, 8, seed=2)
+    graph = _bit_graph(B, 8)
+    degrees = n(tprune.compute_degrees(t(graph)))
+    jt = jr.flatten_search_tree(jnp.asarray(B), 77, leaf_size=30, angular=True,
+                                degrees=jnp.asarray(degrees), neighbor_idx=jnp.asarray(graph))
+    tt = tr.flatten_search_tree(t(B), 77, leaf_size=30, angular=True, degrees=t(degrees),
+                                neighbor_idx=t(graph))
+    _flat_equal(jt, tt)
+    arrays = tt.to_arrays()
+    leaves = arrays["leaf_lo"] >= 0
+    assert (arrays["leaf_hi"] - arrays["leaf_lo"])[leaves].sum() == 600
+    # bit queries descend by popcount margins to the same leaves
+    Q = _bit_rows(100, 8, seed=3)
+    coins = np.random.RandomState(1).randint(0, 2**32, 100, dtype=np.uint64).astype(np.uint32)
+    jtree = {k: jnp.asarray(v) for k, v in arrays.items() if k not in ("depth", "angular", "leaf_size")}
+    jlo, jhi = jr.descend_tree(jtree, jnp.asarray(B), jnp.asarray(Q), jnp.asarray(coins),
+                               arrays["depth"], True)
+    from pynndescent_torch.models.search import tree_to_device
+
+    tlo, thi = tr.descend_tree(tree_to_device(arrays, "cpu"), t(B), t(Q),
+                               t(coins.astype(np.int64)), arrays["depth"], True)
+    np.testing.assert_array_equal(n(tlo), n(jlo))
+    np.testing.assert_array_equal(n(thi), n(jhi))
+
+
+@pytest.mark.parametrize("angular", [False, True])
+def test_materialized_tree_matches_jax_and_descends_alike(angular):
+    X = clustered(900, 12, seed=4)
+    jt = jr.flatten_search_tree(jnp.asarray(X), 1234, leaf_size=30, angular=angular,
+                                materialize=True).to_arrays()
+    # the JAX package's tree, carried over: the port materializes the same planes
+    tt = tr.FlatTree.from_arrays(jt)
+    hyper, offset = tr.materialize_hyperplanes(t(X), tt.a_pt, tt.b_pt, angular)
+    np.testing.assert_allclose(hyper, jt["hyper"], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(offset, jt["offset"], atol=1e-6, rtol=0)
+    own = tr.flatten_search_tree(t(X), 1234, leaf_size=30, angular=angular,
+                                 materialize=True).to_arrays()
+    np.testing.assert_allclose(own["hyper"], jt["hyper"], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(own["offset"], jt["offset"], atol=1e-6, rtol=0)
+    Q = clustered(200, 12, seed=8)
+    coins = np.random.RandomState(1).randint(0, 2**32, 200, dtype=np.uint64).astype(np.uint32)
+    jtree = {k: jnp.asarray(v) for k, v in jt.items() if k not in ("depth", "angular", "leaf_size")}
+    jlo, jhi = jr.descend_tree(jtree, jnp.asarray(X), jnp.asarray(Q), jnp.asarray(coins),
+                               jt["depth"], angular)
+    from pynndescent_torch.models.search import tree_to_device
+
+    # descended by the planes alone: the data argument is never read
+    tlo, thi = tr.descend_tree(tree_to_device(tt.to_arrays(), "cpu"), None, t(Q),
+                               t(coins.astype(np.int64)), jt["depth"], angular)
+    agree = (n(tlo) == n(jlo)) & (n(thi) == n(jhi))
+    # a query within rounding of a plane may change sides (the margin is one
+    # fp32 dot product in each package, summed in a different order)
+    assert agree.mean() >= 0.99

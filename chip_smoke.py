@@ -4,6 +4,7 @@
     python3 chip_smoke.py                          # one card, every phase
     python3 chip_smoke.py --phases setup,kernels   # build the kernels, phase 2 alone
     python3 chip_smoke.py --phases mnist784,metrics  # any subset, by name
+    python3 chip_smoke.py --phases sparse_cosine,sparse_jaccard,sparse_ell  # wide CSR
 
 Phases, each printing its own line; any failure raises and the script exits
 non-zero:
@@ -27,7 +28,15 @@ non-zero:
 8. quantized: ``quantization="uint8"``, ``"uint4"`` and ``"binary"`` on the
    100k x 128 data beside the unquantized index;
 9. metrics: ``manhattan`` (a broadcast metric) and ``bit_hamming`` (packed
-   ``uint8`` rows) builds, which must launch no kernel.
+   ``uint8`` rows) builds, which must launch no kernel;
+10. sparse_cosine: ``bench.py``'s 50k x 100k TF-IDF corpus (CSR, 64 stored
+    entries a row) under cosine: the hash sketch, the exact ELL rerank, a
+    second build that must give the same graph;
+11. sparse_jaccard: the same corpus under jaccard: the sign minhash;
+12. sparse_ell: the same corpus under cosine with the sketch off: the exact
+    padded-ELL route, and the share of its descent spent in tagged sorts.
+    Phases 10-12 launch no kernel; every distance they return must equal the
+    exact scipy value.
 
 The last two lines are a JSON object describing the kernels and, last,
 ``{"ok": true, "device": {...}}``. Recall is measured against an exact fp32
@@ -898,9 +907,282 @@ def phase_metrics(torch, state):
     torch.cuda.empty_cache()
 
 
+def make_tfidf_data(n, nq, d, nnz, seed=42, n_topics=64):
+    """bench.py::make_tfidf_data (numpy and scipy): a TF-IDF-like CSR
+    corpus, half of each row's terms from a global Zipf background, half
+    from its topic's vocabulary, values tf * idf. Returns (train, queries)."""
+    from scipy import sparse
+
+    rs = np.random.RandomState(seed)
+    topic_vocab = np.stack([rs.choice(d, 8 * nnz, replace=False) for _ in range(n_topics)])
+    bg_p = 1.0 / np.arange(1, d + 1) ** 1.07
+    bg_p /= bg_p.sum()
+    idf = np.log(1.0 / (bg_p * 20.0)).clip(0.5).astype(np.float32)
+
+    def draw(m, seed2):
+        rs2 = np.random.RandomState(seed2)
+        n_bg = nnz // 2
+        n_tp = nnz - n_bg
+        cols = np.empty((m, nnz), np.int64)
+        cols[:, :n_bg] = rs2.choice(d, size=(m, n_bg), p=bg_p)
+        topics = rs2.randint(0, n_topics, m)
+        keys = rs2.random_sample((m, topic_vocab.shape[1]))
+        pick = np.argpartition(keys, n_tp, axis=1)[:, :n_tp]
+        cols[:, n_bg:] = topic_vocab[topics[:, None], pick]
+        tf = 1.0 + rs2.poisson(1.2, (m, nnz))
+        vals = (np.log1p(tf) * idf[cols]).astype(np.float32)
+        rows = np.repeat(np.arange(m), nnz)
+        M = sparse.csr_matrix((vals.ravel(), (rows, cols.ravel())), shape=(m, d))
+        M.sum_duplicates()
+        return M
+
+    return draw(n, seed + 1), draw(nq, seed + 2)
+
+
+SPARSE_FLOOR = 0.85  # BASELINE.md:23, sparse CSR cosine build recall
+SPARSE_RTOL, SPARSE_ATOL = 1e-5, 5e-7  # a self pair reads up to 2.4e-7 in fp32
+SPARSE_WIDE_EPS = 0.6  # the second reading after a miss
+
+
+def _unit_rows64(csr):
+    csr = csr.astype(np.float64)
+    norms = np.sqrt(np.asarray(csr.multiply(csr).sum(axis=1)).ravel())
+    return csr.multiply(1.0 / np.where(norms == 0, 1.0, norms)[:, None]).tocsr()
+
+
+def sparse_distance_matrix(Q, X, metric):
+    """Exact float64 [len(Q), len(X)] distances from the CSR rows, as
+    bench.py:184-191 computes them (scipy products, no scikit-learn)."""
+    if metric == "cosine":
+        return 1.0 - np.asarray((_unit_rows64(Q) @ _unit_rows64(X).T).todense())
+    Qb, Xb = (Q != 0).astype(np.float64), (X != 0).astype(np.float64)
+    inter = np.asarray((Qb @ Xb.T).todense())
+    union = np.asarray(Qb.sum(axis=1)) + np.asarray(Xb.sum(axis=1)).reshape(1, -1) - inter
+    return 1.0 - inter / np.maximum(union, 1.0)
+
+
+def sparse_pair_distances(A, ia, B, ib, metric):
+    """Exact float64 distances between rows A[ia[t]] and B[ib[t]]."""
+    a, b = A[ia].astype(np.float64), B[ib].astype(np.float64)
+    if metric == "jaccard":
+        a, b = (a != 0).astype(np.float64), (b != 0).astype(np.float64)
+        inter = np.asarray(a.multiply(b).sum(axis=1)).ravel()
+        union = np.diff(a.indptr) + np.diff(b.indptr) - inter
+        return np.where(union == 0, 0.0, 1.0 - inter / np.maximum(union, 1.0))
+    num = np.asarray(a.multiply(b).sum(axis=1)).ravel()
+    sa = np.asarray(a.multiply(a).sum(axis=1)).ravel()
+    sb = np.asarray(b.multiply(b).sum(axis=1)).ravel()
+    one_zero = (sa == 0) | (sb == 0)
+    val = 1.0 - num / np.sqrt(np.where(one_zero, 1.0, sa * sb))
+    return np.where((sa == 0) & (sb == 0), 0.0, np.where(one_zero, 1.0, val))
+
+
+def check_sparse_rows(name, idx, dist, A, rows, X, metric):
+    """The returned rows ``idx[rows]`` of queries (or graph rows) ``A[rows]``:
+    ids in range, no id twice in a row, every distance the exact one within
+    SPARSE_RTOL relative and SPARSE_ATOL absolute. Returns the max abs err."""
+    ids = idx[rows]
+    if ids.min() < 0 or ids.max() >= X.shape[0]:
+        raise AssertionError(f"{name}: an id out of range")
+    srt = np.sort(ids, axis=1)
+    if (srt[:, 1:] == srt[:, :-1]).any():
+        raise AssertionError(f"{name}: a row holds an id twice")
+    want = sparse_pair_distances(A, np.repeat(rows, ids.shape[1]), X, ids.ravel(), metric)
+    got = dist[rows].ravel().astype(np.float64)
+    err = np.abs(got - want)
+    bad = int((err > SPARSE_RTOL * np.abs(want) + SPARSE_ATOL).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} distances differ from the exact ones "
+                             f"(max abs err {err.max():.3g})")
+    return float(err.max())
+
+
+def _tfidf(state):
+    if "tfidf" not in state:
+        t0 = time.perf_counter()
+        state["tfidf"] = make_tfidf_data(50_000, 2_000, 100_000, 64, seed=47)
+        train, queries = state["tfidf"]
+        log(f"[sparse] corpus make_tfidf_data(50000, 2000, 100000, 64, seed=47): train "
+            f"{train.shape} with {train.nnz} stored entries (at most "
+            f"{int(np.diff(train.indptr).max())} a row), {queries.shape[0]} queries, made in "
+            f"{time.perf_counter() - t0:.1f} s on the host")
+    return state["tfidf"]
+
+
+def _sparse_build_and_query(torch, state, tag, metric, seed, route, **kw):
+    """bench.py::run_sparse_workload on the card: build -> prepare, two
+    query passes (best QPS), recall@10 strict and tie-tolerant on 200
+    sampled queries against the exact oracle, the distances of those queries
+    and of 1,000 sampled graph rows against the exact scipy values. The
+    launch counts are set to 0 before the build and read after the queries:
+    no kernel lies on these paths. Returns (index, graph ids)."""
+    from pynndescent_torch import NNDescent
+    from pynndescent_torch.ops import init_kernels as ik
+
+    train, queries = _tfidf(state)
+    card = state["card"]
+    ik.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = NNDescent(train, metric=metric, n_neighbors=10, random_state=seed, device="cuda",
+                      profile=True, **kw)
+    index.prepare()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if (index._sketch is None) == (route != "exact ELL"):
+        raise AssertionError(f"{tag}: took the wrong route ({index._sketch}, {index._ell})")
+    qps, qi = 0.0, None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qi, qd = index.query(queries, k=10, epsilon=0.3)
+        qps = max(qps, queries.shape[0] / (time.perf_counter() - t0))
+    launches = dict(ik.LAUNCHES)
+    _add_path_launches(state, launches)
+    if launches["leaf_allpairs"] or launches["window_topm"]:
+        raise AssertionError(f"{tag}: a kernel launched on a path that has none: {launches}")
+
+    sample = np.random.RandomState(0).choice(queries.shape[0], 200, replace=False)
+    D = sparse_distance_matrix(queries[sample], train, metric)
+    strict, tol = sparse_recall(D, qi[sample])
+    q_err = check_sparse_rows(f"{tag} query", qi, qd, queries, sample, train, metric)
+    gi, gd = index.neighbor_graph
+    gs = np.random.RandomState(1).choice(train.shape[0], N_SAMPLE, replace=False)
+    g_err = check_sparse_rows(f"{tag} neighbor_graph", gi, gd, train, gs, train, metric)
+    g_strict, g_tol = sparse_recall(sparse_distance_matrix(train[gs], train, metric), gi[gs])
+    times = {k: round(v, 3) for k, v in index.phase_times_.items()}
+    degree = float((index._search_graph >= 0).sum(dim=1).float().mean())
+    shape = (f"sketch {index._sketch['kind']} h={index._sketch['h']} (build_k "
+             f"{index._build_k})" if index._sketch else f"packed width 2 x {index._ell['nnz']}")
+    log(f"[{tag}] {train.shape[0]}x{train.shape[1]} TF-IDF {metric}, {route} ({shape}): "
+        f"build+prepare {build_s:.2f} s (phase_times {times}), {qps:.0f} QPS best of two "
+        f"({queries.shape[0]} queries, eps 0.3, k 10), query recall@10 strict {strict:.4f} "
+        f"tie-tolerant {tol:.4f} (reference floor {SPARSE_FLOOR}"
+        f"{'' if strict >= SPARSE_FLOOR else ', MISSED'}), graph recall@10 of {N_SAMPLE} rows "
+        f"strict {g_strict:.4f} tie-tolerant {g_tol:.4f}, search graph mean degree "
+        f"{degree:.2f}, peak device memory {peak} bytes, "
+        f"launches leaf_allpairs {launches['leaf_allpairs']} window_topm "
+        f"{launches['window_topm']}; ids in range, rows free of duplicates, max |d - exact| "
+        f"{q_err:.3g} (200 queries) / {g_err:.3g} ({N_SAMPLE} graph rows) | {card}")
+    if strict < SPARSE_FLOOR:
+        # not a failure: the reading at a wider search says whether the
+        # search budget or the graph holds recall back
+        t0 = time.perf_counter()
+        wi, wd = index.query(queries, k=10, epsilon=SPARSE_WIDE_EPS)
+        w_qps = queries.shape[0] / (time.perf_counter() - t0)
+        check_sparse_rows(f"{tag} query", wi, wd, queries, sample, train, metric)
+        w_strict, w_tol = sparse_recall(D, wi[sample])
+        log(f"[{tag}] query recall {strict:.4f} is under {SPARSE_FLOOR}; at eps "
+            f"{SPARSE_WIDE_EPS}: strict {w_strict:.4f} tie-tolerant {w_tol:.4f}, {w_qps:.0f} QPS "
+            f"| {card}")
+    return index, gi
+
+
+def sparse_recall(D, found, k=10):
+    """bench.py:192-197: a returned id is a hit if its exact distance is at
+    most the true k-th (strict), or at most 1.001 times it (tie-tolerant)."""
+    dk = np.partition(D, k - 1, axis=1)[:, k - 1:k]
+    found = found[:, :k]
+    d_found = np.take_along_axis(D, np.maximum(found, 0), axis=1)
+    valid = found >= 0
+    return (float((valid & (d_found <= dk + 1e-6)).mean()),
+            float((valid & (d_found <= dk * (1 + 1e-3) + 1e-6)).mean()))
+
+
+def phase_sparse_cosine(torch, state):
+    """bench.py's sparse_cosine cell: the hash sketch (h = 4096), its bf16
+    join, the exact ELL rerank; then the same build again, which must give
+    the same graph."""
+    from pynndescent_torch import NNDescent
+
+    index, gi = _sparse_build_and_query(torch, state, "10 sparse_cosine", "cosine", 48,
+                                        "hash sketch")
+    del index
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    again = NNDescent(_tfidf(state)[0], metric="cosine", n_neighbors=10, random_state=48,
+                      device="cuda")
+    same = np.array_equal(gi, again.neighbor_graph[0])
+    log(f"[10 sparse_cosine] a second build with the same seed ({time.perf_counter() - t0:.2f} s) "
+        f"gives identical neighbor_graph ids: {same} | {state['card']}")
+    if not same:
+        raise AssertionError("sparse_cosine: two builds with the same seed differ")
+    del again
+    torch.cuda.empty_cache()
+
+
+def phase_sparse_jaccard(torch, state):
+    """bench.py's sparse_jaccard cell: the sign minhash (D = 8192), plain
+    trees, the exact ELL rerank."""
+    index, _ = _sparse_build_and_query(torch, state, "11 sparse_jaccard", "jaccard", 49,
+                                       "sign minhash")
+    del index
+    torch.cuda.empty_cache()
+
+
+def _profiled_sort_share(torch, state, seed):
+    """One more exact-ELL build under torch.profiler. Returns the device time
+    (us) of the kernels launched inside ``sparse_ell.tagged_sort`` ranges that
+    lie in the ``phase/descent`` range (keys, sort, value gather), the device
+    time of all kernels of that range, and of the whole build."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pynndescent_torch import NNDescent
+
+    train, _ = _tfidf(state)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        NNDescent(train, metric="cosine", n_neighbors=10, random_state=seed, device="cuda",
+                  sparse_sketch=None, profile=True)
+        torch.cuda.synchronize()
+    events = prof.events()
+
+    def inside(e, name):
+        p = e.cpu_parent
+        while p is not None and p.name != name:
+            p = p.cpu_parent
+        return p is not None
+
+    roots = [e for e in events if e.cpu_parent is None and e.device_type == DeviceType.CPU]
+    build_us = sum(e.device_time_total for e in roots)
+    # the CPU-side range: its device time is that of the kernels launched in it
+    descent_us = sum(e.device_time_total for e in events
+                     if e.name == "phase/descent" and e.device_type == DeviceType.CPU)
+    sort_us = sum(e.device_time_total for e in events
+                  if e.name == "sparse_ell.tagged_sort" and inside(e, "phase/descent"))
+    return sort_us, descent_us, build_us
+
+
+def phase_sparse_ell(torch, state):
+    """The same corpus on the exact padded-ELL route (sketch off): the
+    alternative_cosine ELL join, the edge-cut hub tree, ELL queries; then the
+    share of the descent's device time spent in the tagged sorts, from a
+    profiled build."""
+    index, _ = _sparse_build_and_query(torch, state, "12 sparse_ell", "cosine", 48, "exact ELL",
+                                       sparse_sketch=None)
+    descent_s = index.phase_times_["descent"]
+    del index
+    torch.cuda.empty_cache()
+    sort_us, descent_us, build_us = _profiled_sort_share(torch, state, 48)
+    if sort_us and descent_us:
+        share = (f"{100 * sort_us / descent_us:.1f}% of the descent's kernel time "
+                 f"({sort_us / 1e3:.1f} of {descent_us / 1e3:.1f} ms; the whole build's kernels "
+                 f"{build_us / 1e3:.1f} ms; the descent's wall time unprofiled {descent_s:.2f} s)")
+    else:
+        share = (f"not measured: the profiler gave no device time for the ranges "
+                 f"(tagged sort {sort_us}, descent {descent_us}, build {build_us} us)")
+    log(f"[12 sparse_ell] tagged sorts (keys, torch.sort, value gather): {share} | "
+        f"{state['card']}")
+
+
 PHASES = {"setup": phase_setup, "kernels": phase_kernels, "100k": phase_100k,
           "100k_cosine": phase_100k_cosine, "1m": phase_1m, "determinism": phase_determinism,
-          "mnist784": phase_mnist784, "quantized": phase_quantized, "metrics": phase_metrics}
+          "mnist784": phase_mnist784, "quantized": phase_quantized, "metrics": phase_metrics,
+          "sparse_cosine": phase_sparse_cosine, "sparse_jaccard": phase_sparse_jaccard,
+          "sparse_ell": phase_sparse_ell}
 
 
 def main():

@@ -1,14 +1,16 @@
 """NNDescent index for PyTorch (counterpart of
 pynndescent_tpu/models/nndescent.py, the dense single-device surface).
 
-The constructor takes the JAX package's arguments and covers its dense
-surface: every registry metric and callables with ``metric_kwds``, bit-packed
-``uint8`` data, proxy metrics with their exact rerank, quantized search,
-``init_graph`` warm starts, ``n_search_trees`` candidates, small sparse input
-(densified), ``update()``, ``compress_index()``, pickling and ``save`` /
-``load``. What is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item: sparse input wider than ``DENSIFY_MAX_FEATURES`` and the exact
-optimal-transport metrics (A12); ``devices=`` meshes (A13).
+The constructor takes the JAX package's arguments and covers its
+single-device surface: every registry metric and callables with
+``metric_kwds``, bit-packed ``uint8`` data, proxy metrics with their exact
+rerank, quantized search, ``init_graph`` warm starts, ``n_search_trees``
+candidates, sparse input (densified up to ``DENSIFY_MAX_FEATURES`` columns;
+wider CSR input routes as ``sketch.resolve`` decides: through a dense sketch
+with the exact rerank from packed ELL rows, or through the exact padded-ELL
+path), ``update()``, ``compress_index()``, pickling and ``save`` / ``load``.
+What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
+item: the exact optimal-transport metrics (A4); ``devices=`` meshes (A5).
 
 The device is explicit: ``device="cuda"`` is the default and the
 constructor raises when CUDA is unavailable; only ``device="cpu"`` runs on
@@ -32,7 +34,9 @@ from pynndescent_torch.ops import nndescent as nnd_ops
 from pynndescent_torch.ops import prune as prune_ops
 from pynndescent_torch.ops import quantization as qz
 from pynndescent_torch.ops import rp_trees
+from pynndescent_torch.ops import sketch as sketch_ops
 from pynndescent_torch.ops import sparse as sparse_ops
+from pynndescent_torch.ops import sparse_ell
 from pynndescent_torch.ops.neighbors import (MAX_ID, block_starts, make_neighbor_state,
                                               merge_candidates, state_from_graph)
 from pynndescent_torch.utils import rng
@@ -49,7 +53,9 @@ _ANGULAR_METRICS = (
     "bit_hamming",
     "bit_jaccard",
 )
-_A12 = "is not ported to the PyTorch package yet (ROADMAP A12)"
+_A4 = "is not ported to the PyTorch package yet (ROADMAP A4)"
+# hash seed of every sketch (the JAX package's constant)
+_SKETCH_SEED = 0x5EED
 _tf32_warned = False
 
 
@@ -86,6 +92,38 @@ def _check_finite(arr, name="data"):
 def _unit_rows(data):
     norms = np.linalg.norm(data, axis=1, keepdims=True)
     return data / np.where(norms == 0.0, 1.0, norms)
+
+
+def _l2_normalize_csr(csr):
+    """The rows of a CSR matrix scaled to unit L2 norm, bit for bit as
+    ``sklearn.preprocessing.normalize(csr, norm="l2")`` scales them (the JAX
+    package's row scaling for ``dot``): each entry squared in the data's
+    float type, the squares summed in float64 in storage order, every entry
+    divided by the row's norm in float64 and rounded back; rows of norm 0
+    stay as they are. Integer data is taken as float64, as sklearn takes it."""
+    csr = csr.tocsr()
+    dt = csr.dtype if csr.dtype in (np.float32, np.float64) else np.float64
+    csr = csr.astype(dt, copy=True)
+    counts = np.diff(csr.indptr)
+    rows = np.repeat(np.arange(csr.shape[0]), counts)
+    cols = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1], counts)
+    sq = np.zeros((csr.shape[0], max(1, int(counts.max(initial=0)))), np.float64)
+    sq[rows, cols] = csr.data * csr.data
+    acc = np.zeros(csr.shape[0], np.float64)
+    for j in range(sq.shape[1]):  # one position of every row at a time: sequential sums
+        acc += sq[:, j]
+    norm = np.where(acc == 0.0, 1.0, np.sqrt(acc))
+    csr.data = (csr.data.astype(np.float64) / norm[rows]).astype(dt)
+    return csr
+
+
+def _rerank_rows(dist_rowwise, queries, cand_idx, X, k):
+    """Exact distances of each query row to its candidate ids (+inf at -1),
+    sorted ascending (stable); the k smallest as (ids, distances)."""
+    d = dist_rowwise(queries, X[torch.clamp(cand_idx, min=0).to(torch.int64)])
+    d = torch.where(cand_idx < 0, torch.full_like(d, float("inf")), d)
+    nd, pos = torch.sort(d, dim=-1, stable=True)
+    return torch.gather(cand_idx, -1, pos)[:, :k], nd[:, :k]
 
 
 def _pack_sign_bits(q):
@@ -156,7 +194,7 @@ class NNDescent:
             _warn_tf32_once()
         if devices not in (None, 1) or shard_data:
             raise NotImplementedError(
-                "multi-device builds are not ported to the PyTorch package yet (ROADMAP A13)")
+                "multi-device builds are not ported to the PyTorch package yet (ROADMAP A5)")
 
         self.n_neighbors = n_neighbors
         self.metric = metric
@@ -186,13 +224,19 @@ class NNDescent:
         self.locality = locality
         self.profile = profile
         self._timer = PhaseTimer(profile, self.device)
-        self._set_distance_func()
 
-        # dtype policy: float32 C-order dense (small CSR densified), uint8
-        # for bit-packed metrics
+        # dtype policy: float32 C-order dense (narrow CSR densified, wide CSR
+        # packed or sketched), uint8 for bit-packed metrics
         self._input_is_sparse = sparse_ops.is_sparse(data)
+        self._ell = self._sketch = self._ell_store = self._ell_store_dev = None
+        self._graph_exact = None
         if self._input_is_sparse:
-            data = sparse_ops.densify(data)
+            csr = data.tocsr()
+            if csr.shape[1] > sparse_ops.DENSIFY_MAX_FEATURES:
+                data = self._route_wide_sparse(csr)
+            else:
+                data = sparse_ops.densify(csr)
+        self._set_distance_func()
         self._is_bit = metric in ("bit_hamming", "bit_jaccard") or (
             callable(metric) and self.bit_metric)
         self._input_dtype = np.uint8 if self._is_bit else np.float32
@@ -222,10 +266,16 @@ class NNDescent:
         self.max_candidates = max_candidates
         self.leaf_size = leaf_size
         self.n_trees_after_update = max(2, int(round(n_trees / 3)))
+        # a sketch's internal graph is built twice as wide and reranked exactly
+        # down to n_neighbors (neighbor_graph)
+        self._build_k = min(max(n - 1, 1), 2 * n_neighbors) if self._sketch else n_neighbors
         self._angular_trees = metric in _ANGULAR_METRICS or (
             callable(metric) and self.angular_trees)
+        if self._sketch is not None and self._sketch["kind"] == "minhash":
+            # signatures share one norm: plain (offset euclidean) splits
+            self._angular_trees = False
 
-        if metric == "dot":
+        if metric == "dot" and self._ell is None:
             data = _unit_rows(data)
         self._raw_data = data
         self._X = torch.from_numpy(data).to(self.device)
@@ -251,7 +301,7 @@ class NNDescent:
                     gd = self._bulk_self_distances(gi)
                 else:
                     gd = torch.from_numpy(np.asarray(init_dist, np.float32)).to(self.device)
-                init_state = state_from_graph(gi, gd, k=n_neighbors)
+                init_state = state_from_graph(gi, gd, k=self._build_k)
             if verbose:
                 print(_ts(), "NN descent for", n_iters, "iterations")
             with self._timer.phase("descent"):
@@ -265,27 +315,62 @@ class NNDescent:
     # build plumbing
     # ------------------------------------------------------------------
 
+    def _route_wide_sparse(self, csr):
+        """CSR input wider than ``DENSIFY_MAX_FEATURES`` (JAX
+        models/nndescent.py:214-258), as ``sketch.resolve`` decides. The
+        sketch route keeps the exact packed rows in ``_ell_store`` for the
+        rerank and returns the dense sketch to build on; the exact route
+        returns the packed rows themselves. ``dot`` rows are scaled to unit
+        norm first."""
+        if self.metric == "dot":
+            csr = _l2_normalize_csr(csr)
+        nnz_max = max(1, int(np.diff(csr.indptr).max(initial=1)))
+        sk = None
+        if self.quantization is None and isinstance(self.metric, str):
+            sk = sketch_ops.resolve(self.sparse_sketch, self.metric, csr.shape[1], csr.shape[0])
+        if sk is None:
+            self._ell = {"nnz": nnz_max, "n_features": csr.shape[1]}
+            return sparse_ell.csr_to_ell_packed(csr, nnz_max)
+        self._ell_store = sparse_ell.csr_to_ell_packed(csr, nnz_max)
+        self._sketch = {"kind": sk["kind"], "encode": sk.get("encode"), "h": sk["h"],
+                        "internal": sk["internal"], "binarize": sk["binarize"],
+                        "seed": _SKETCH_SEED, "nnz": nnz_max, "n_features": csr.shape[1]}
+        return sketch_ops.sketch_rows(csr, self._sketch, _SKETCH_SEED, self.device)
+
+    def _ell_nnz(self):
+        return self._ell["nnz"] if self._ell is not None else None
+
     def _build_forest(self, n_trees):
         """The init forest from ``n_trees`` host-derived seeds. Hyperplane
         splits use a bfloat16 copy of X, as in the JAX package; bit-packed
-        rows split by the closest anchor under popcount and stay as they
-        are."""
+        rows split by the closest anchor under popcount and packed ELL rows
+        by the sparse-dot margin, both as they are (packed indices must stay
+        exact)."""
         n = self._X.shape[0]
         seeds = rng.host_ints(self._root_seed, rng.ROLE_FOREST, n_trees)
-        split_X = self._X if self._is_bit else self._X.to(torch.bfloat16)
+        exact = self._is_bit or self._ell is not None
+        split_X = self._X if exact else self._X.to(torch.bfloat16)
         return rp_trees.build_forest_orders(
             split_X, seeds, self.leaf_size,
             min(rp_trees.forest_depth(n, self.leaf_size), self.max_rptree_depth),
-            angular=self._angular_trees)
+            angular=self._angular_trees, ell_nnz=self._ell_nnz())
 
-    def _descend(self, forest, init_state):
+    def _descend(self, forest, init_state, build=True):
+        """NN-descent to ``_build_k`` neighbors. A sketch's first build (not
+        an update, as in the JAX package) joins on a bfloat16 copy of the
+        sketch (+-1 signs are exact in it) with the candidate pool clamped to
+        12, the JAX package's clamp, kept as it is (ROADMAP C)."""
+        sketch_build = build and self._sketch is not None
+        mc = self.max_candidates
+        if sketch_build and mc:
+            mc = min(mc, 12)
+        bf16 = self.build_dtype == "bfloat16" or sketch_build
         return nnd_ops.nn_descent(
-            self._X, self.n_neighbors, self._root_seed,
+            self._X, self._build_k, self._root_seed,
             metric=self._internal_metric, metric_kwds=self._internal_metric_kwds,
-            n_iters=self.n_iters, delta=self.delta, max_candidates=self.max_candidates,
+            n_iters=self.n_iters, delta=self.delta, max_candidates=mc,
             init_graph=init_state, forest=forest, leaf_cap=min(self.leaf_size, 64),
-            block_rows=self.block_rows,
-            compute_dtype=torch.bfloat16 if self.build_dtype == "bfloat16" else None,
+            block_rows=self.block_rows, compute_dtype=torch.bfloat16 if bf16 else None,
             locality=self.locality, verbose=self.verbose)
 
     def _set_graph(self, graph):
@@ -294,6 +379,7 @@ class NNDescent:
         one."""
         self._neighbor_graph = graph
         self._graph_np = None
+        self._graph_exact = None
         self._warned_incomplete = False
         self._search_graph = None
         self._search_tree = None
@@ -317,16 +403,24 @@ class NNDescent:
     def _set_distance_func(self):
         """Registry lookup with the fast-alternative / proxy substitution for
         build and search; distances are corrected, or reranked by the true
-        metric, on output."""
+        metric, on output. A sketch builds and searches under the dense
+        metric of its space (and reranks from the packed rows); the exact
+        ELL path takes its own closures (``_set_ell_metric``)."""
+        if getattr(self, "_ell", None) is not None:
+            self._set_ell_metric()
+            return
         metric = self.metric
         self._distance_correction = None
         self._internal_metric_kwds = self.metric_kwds
         self._is_proxy = False
         self._true_metric = None
+        if getattr(self, "_sketch", None) is not None:
+            metric = self._sketch["internal"]
+            self._internal_metric_kwds = {}
         if callable(metric):
             self._internal_metric = metric
         elif metric in dst.OT_METRICS or metric in dst.OT_PROXY_METRICS:
-            raise NotImplementedError(f"metric '{metric}' (exact optimal transport) {_A12}")
+            raise NotImplementedError(f"metric '{metric}' (exact optimal transport) {_A4}")
         elif metric in dst.proxy_distances:
             entry = dst.proxy_distances[metric]
             self._internal_metric = entry["proxy_dist"]
@@ -340,6 +434,62 @@ class NNDescent:
             self._internal_metric = metric
         else:
             raise ValueError(f"Metric '{metric}' not recognized")
+
+    def _set_ell_metric(self):
+        """The exact ELL path's metric: the ELL alternative of the metric
+        (``ELL_ALTERNATIVES``, corrected on output) or the metric itself, as a
+        closure over the data's packed width. The closure binds
+        ``metric_kwds``, so none are passed at call time."""
+        if not isinstance(self.metric, str):
+            raise NotImplementedError(
+                "custom callables are not supported on the padded-ELL sparse path")
+        if self.quantization is not None:
+            raise NotImplementedError(
+                "quantization is not supported on the padded-ELL sparse path (the "
+                "reference's quantization is dense-only, pynndescent_.py:2175)")
+        alt = sparse_ell.ELL_ALTERNATIVES.get(self.metric)
+        self._ell_internal_name, self._distance_correction = alt or (self.metric, None)
+        nnz = self._ell["nnz"]
+        self._internal_metric = self._make_ell_closure(nnz, nnz)
+        self._internal_metric_kwds = {}
+        self._is_proxy = False
+        self._true_metric = None
+
+    def _make_ell_closure(self, nnz_x, nnz_y, name=None):
+        """ELL metric closure for packed operands of widths (nnz_x, nnz_y),
+        kept per (name, widths). ``name`` overrides the internal name: the
+        sketch route reranks with the true metric."""
+        cache = self.__dict__.setdefault("_ell_metric_cache", {})
+        name = name or self._ell_internal_name
+        key = (name, nnz_x, nnz_y)
+        if key not in cache:
+            meta = self._ell if self._ell is not None else self._sketch
+            cache[key] = sparse_ell.make_ell_metric(name, nnz_x, nnz_y,
+                                                    n_features=meta["n_features"],
+                                                    **self.metric_kwds)
+        return cache[key]
+
+    def _ell_store_device(self):
+        """The sketch route's exact packed rows on the device (uploaded once)."""
+        if self._ell_store_dev is None:
+            self._ell_store_dev = torch.from_numpy(self._ell_store).to(self.device)
+        return self._ell_store_dev
+
+    def _exact_graph(self):
+        """The sketch route's graph as the API shows it: each row of the
+        internal graph (``_build_k`` wide, ranked by sketch distance) reranked
+        by the true metric from the packed rows, the n_neighbors closest
+        kept; computed once, in blocks of 16,384 rows."""
+        if self._graph_exact is None:
+            idx = self._neighbor_graph[0]
+            nnz = self._sketch["nnz"]
+            fn = nnd_ops._resolve_rowwise_metric(self._make_ell_closure(nnz, nnz, self.metric))
+            ell = self._ell_store_device()
+            k = min(self.n_neighbors, idx.shape[1])
+            parts = [_rerank_rows(fn, ell[s:s + 16384], idx[s:s + 16384], ell, k)
+                     for s in range(0, idx.shape[0], 16384)]
+            self._graph_exact = tuple(torch.cat(p).cpu().numpy() for p in zip(*parts))
+        return self._graph_exact
 
     def _maybe_warn_incomplete(self, flag=None):
         """Warn once when some row has fewer than n_neighbors entries."""
@@ -370,6 +520,8 @@ class NNDescent:
             warnings.warn("The index is compressed; neighbor graph is not available.")
             return None
         self._maybe_warn_incomplete()
+        if self._sketch is not None:
+            return self._exact_graph()
         idx, d = self._graph_host()
         if self._distance_correction is not None:
             d = self._distance_correction(d)
@@ -442,7 +594,9 @@ class NNDescent:
         st_leaf_size = self.search_tree_leaf_size or max(self.leaf_size, self.n_neighbors)
         st_depth = self.max_search_tree_depth or rp_trees.forest_depth(
             self._X.shape[0], st_leaf_size)
-        nb_idx = idx if self._is_bit else None
+        # packed ELL and bit rows score hub splits by graph edge cuts
+        nb_idx = idx if (self._is_bit or self._ell is not None) else None
+        ell_nnz = self._ell_nnz()
         cand_seeds = rng.host_ints(self._root_seed, rng.ROLE_SEARCH,
                                    max(1, int(self.n_search_trees)))
         seed = cand_seeds[0]
@@ -452,7 +606,7 @@ class NNDescent:
             for cand in cand_seeds:
                 o, s, z = rp_trees.build_tree_order(
                     self._X, cand, st_leaf_size, st_depth, angular=self._angular_trees,
-                    degrees=degrees, neighbor_idx=nb_idx)
+                    ell_nnz=ell_nnz, degrees=degrees, neighbor_idx=nb_idx)
                 sc = rp_trees.score_tree(o, s, z, idx_host)
                 if self.verbose:
                     print(_ts(), f"search-tree candidate seed {cand}: score {sc:.4f}")
@@ -462,15 +616,21 @@ class NNDescent:
             tree = rp_trees.flatten_search_tree(
                 self._X, seed, leaf_size=st_leaf_size, max_depth=st_depth,
                 angular=self._angular_trees, materialize=self.quantization is not None,
-                degrees=degrees, neighbor_idx=nb_idx)
+                degrees=degrees, ell_nnz=ell_nnz, neighbor_idx=nb_idx)
             self._search_tree = tree.to_arrays()
             self._tree_dev = search_ops.tree_to_device(self._search_tree, self.device)
 
     def _make_search_copy(self):
         """bfloat16 copy of X for the search's gathers; results are reranked
         exactly in fp32. Bit-packed and quantized indexes search their own
-        bytes and get no copy."""
-        use = self.search_dtype == "bfloat16" and not self._is_bit and self.quantization is None
+        bytes and get no copy; nor do packed ELL rows (their indices must stay
+        exact) and value-encoded minhash signatures (24-bit hash values, which
+        bfloat16 would round: no stored signature would equal a query's)."""
+        sk = self._sketch
+        value_minhash = (sk is not None and sk["kind"] == "minhash"
+                         and sk.get("encode", "value") == "value")
+        use = (self.search_dtype == "bfloat16" and not self._is_bit and self.quantization is None
+               and self._ell is None and not value_minhash)
         self._X_search = self._X.to(torch.bfloat16) if use else None
 
     def _init_quantization(self):
@@ -546,15 +706,46 @@ class NNDescent:
             q = q / torch.where(norms == 0.0, torch.ones_like(norms), norms)
         return q
 
+    def _sparse_rows(self, data, name):
+        """CSR rows given to a wide-sparse index (queries, fresh rows),
+        checked for its feature count and finite values, scaled to unit norm
+        for ``dot``."""
+        if not sparse_ops.is_sparse(data):
+            raise ValueError(f"{name} must be scipy sparse matrices for an index built on wide "
+                             "sparse data")
+        csr = data.tocsr()
+        n_features = (self._ell or self._sketch)["n_features"]
+        if csr.shape[1] != n_features:
+            raise ValueError(f"{name} has {csr.shape[1]} features but the index was built "
+                             f"with {n_features}")
+        _check_finite(csr.data, name)
+        return _l2_normalize_csr(csr) if self.metric == "dot" else csr
+
     def _query_impl(self, query_data, k, epsilon, proxy_beam_size=4, expansions_per_step=2):
-        q = self._queries_to_device(query_data)
+        q_ell = ell = None
+        if self._ell is not None or self._sketch is not None:
+            # packed at the queries' own width: never truncated
+            qcsr = self._sparse_rows(query_data, "queries")
+            qnnz = max(1, int(np.diff(qcsr.indptr).max(initial=1)))
+            q_ell = torch.from_numpy(sparse_ell.csr_to_ell_packed(qcsr, qnnz)).to(self.device)
+            if self._ell is not None:
+                q, ell = q_ell, (qnnz, self._ell["nnz"])
+            else:  # the beam runs on the queries' sketch
+                q = self._queries_to_device(
+                    sketch_ops.sketch_rows(qcsr, self._sketch, self._sketch["seed"], self.device))
+        else:
+            q = self._queries_to_device(query_data)
         use_bf16 = self._X_search is not None
-        is_proxy = self._is_proxy or self._quantized is not None
+        is_proxy = self._is_proxy or self._quantized is not None or self._sketch is not None
         if is_proxy:
             search_k = proxy_beam_size * k
-        elif use_bf16:
+            if self._sketch is not None:
+                # the noisiest proxy: the JAX package floors its over-fetch at 6k
+                search_k = max(search_k, 6 * k)
+        elif use_bf16 or self._ell is not None:
             # modest over-fetch: the bf16 beam may mis-rank near-ties, the
-            # exact rerank below recovers them
+            # exact rerank below recovers them; on the ELL path the wider
+            # result loosens the epsilon bound as the dense path's exploration
             search_k = max(k + k // 2, k + 2)
         else:
             search_k = k
@@ -569,6 +760,9 @@ class NNDescent:
             if self._quantized["mode"] == "binary":
                 search_q = _pack_sign_bits(q)
             min_distance = 0.0
+        elif ell is not None:
+            cand_X = self._X
+            dist_rowwise = nnd_ops._resolve_rowwise_metric(self._make_ell_closure(*ell))
         else:
             cand_X = self._X_search if use_bf16 else self._X
             dist_rowwise = nnd_ops._resolve_rowwise_metric(
@@ -579,30 +773,33 @@ class NNDescent:
             search_q, cand_X, self._search_graph, self._tree_dev,
             rng.derive_seed(self._root_seed, rng.ROLE_SEARCH, 2), k=search_k, epsilon=epsilon,
             min_distance=min_distance, beam_width=beam, dist_rowwise=dist_rowwise,
-            expansions_per_step=int(expansions_per_step), tree_queries=tree_queries,
+            expansions_per_step=int(expansions_per_step), tree_queries=tree_queries, ell=ell,
         )
         if is_proxy or use_bf16:
-            idx, d = self._rerank(q, idx, k)
+            idx, d = self._rerank(q, idx, k, q_ell)
             return idx.cpu().numpy(), d.cpu().numpy()
         idx, d = idx[:, :k].cpu().numpy(), d[:, :k].cpu().numpy()
         if self._distance_correction is not None:
             d = np.asarray(self._distance_correction(d), np.float32)
         return idx, d
 
-    def _rerank(self, queries, cand_idx, k):
+    def _rerank(self, queries, cand_idx, k, q_ell=None):
         """Exact distances in the true metric on the over-fetched candidates;
-        keep the k smallest. The true metric is the proxy's true side, else
-        the user's metric by its registry formula (the difference form for
-        the euclidean family) with the user's keywords."""
+        keep the k smallest. The sketch route reranks the queries' packed
+        rows ``q_ell`` against the packed store. Otherwise the true metric is
+        the proxy's true side, else the user's metric by its registry formula
+        (the difference form for the euclidean family) with the user's
+        keywords."""
+        if q_ell is not None:
+            fn = nnd_ops._resolve_rowwise_metric(
+                self._make_ell_closure(q_ell.shape[1] // 2, self._sketch["nnz"], self.metric))
+            return _rerank_rows(fn, q_ell, cand_idx, self._ell_store_device(), k)
         true_metric = self._true_metric if self._is_proxy else None
         if true_metric is None:
             true_metric = (dst.named_distances[self.metric] if isinstance(self.metric, str)
                            else self.metric)
         fn = nnd_ops._resolve_rowwise_metric(true_metric, self.metric_kwds)
-        d = fn(queries, self._X[torch.clamp(cand_idx, min=0).to(torch.int64)])
-        d = torch.where(cand_idx < 0, torch.full_like(d, float("inf")), d)
-        nd, pos = torch.sort(d, dim=-1, stable=True)
-        return torch.gather(cand_idx, -1, pos)[:, :k], nd[:, :k]
+        return _rerank_rows(fn, queries, cand_idx, self._X, k)
 
     # ------------------------------------------------------------------
 
@@ -630,6 +827,8 @@ class NNDescent:
         forests, and the same sequence of calls gives the same index."""
         if self._neighbor_graph is None:
             raise ValueError("Cannot update a compressed index")
+        if self._ell is not None or self._sketch is not None:
+            xs_fresh = self._append_sparse(xs_fresh, xs_updated)
         # check and coerce both inputs before anything changes; the index's
         # input dtype: a float cast would corrupt uint8 rows
         if xs_updated is not None:
@@ -643,7 +842,7 @@ class NNDescent:
                 xs_fresh = sparse_ops.densify(xs_fresh)
             xs_fresh = np.ascontiguousarray(np.asarray(xs_fresh, self._input_dtype))
             _check_finite(xs_fresh, "xs_fresh")
-            if self.metric == "dot":
+            if self.metric == "dot" and self._ell is None:
                 xs_fresh = np.ascontiguousarray(_unit_rows(xs_fresh))
 
         data = self._raw_data
@@ -679,8 +878,38 @@ class NNDescent:
         with self._timer.phase("update/forest"):
             forest = self._build_forest(self.n_trees_after_update)
         with self._timer.phase("update/descent"):
-            graph = self._descend(forest, state_from_graph(idx, dist, k=k))
+            graph = self._descend(forest, state_from_graph(idx, dist, k=k), build=False)
         self._set_graph(graph)
+
+    def _append_sparse(self, xs_fresh, xs_updated):
+        """The wide-sparse part of ``update()``: append only, as in the
+        reference. The fresh rows are packed at the store's width, which
+        they raise where they are wider (the stored rows are re-padded). The
+        exact route returns them packed; the sketch route stacks them onto
+        the packed store and returns their sketch."""
+        if xs_updated is not None:
+            raise NotImplementedError(
+                "in-place updates are not supported on sparse indexes (reference "
+                "pynndescent_.py:2412); append-only updates (xs_fresh) are")
+        if xs_fresh is None:
+            return None
+        fcsr = self._sparse_rows(xs_fresh, "xs_fresh")
+        meta = self._ell if self._ell is not None else self._sketch
+        old = meta["nnz"]
+        new = max(old, int(np.diff(fcsr.indptr).max(initial=1)))
+        packed = sparse_ell.csr_to_ell_packed(fcsr, new)
+        if self._ell is not None:
+            if new > old:
+                self._raw_data = sparse_ell.ell_repack(self._raw_data, old, new)
+                self._X = sparse_ell.ell_repack(self._X, old, new)
+                self.dim = 2 * new
+                meta["nnz"] = new
+                self._set_ell_metric()
+            return packed
+        self._ell_store = np.vstack([sparse_ell.ell_repack(self._ell_store, old, new), packed])
+        self._ell_store_dev = None
+        meta["nnz"] = new
+        return sketch_ops.sketch_rows(fcsr, self._sketch, self._sketch["seed"], self.device)
 
     # ------------------------------------------------------------------
     # pickling and array checkpoints
@@ -693,8 +922,10 @@ class NNDescent:
         self.prepare()
         state = self.__dict__.copy()
         for key in ("_timer", "_tree_dev", "_quantized_rowwise", "_quantized_codes_dev",
-                    "_graph_np"):
+                    "_graph_np", "_ell_store_dev", "_ell_metric_cache"):
             state.pop(key, None)
+        if self._ell is not None:  # closures over the packed width, rebuilt on load
+            state["_internal_metric"] = state["_distance_correction"] = None
         state["device"] = str(self.device)
         state["_X"] = None  # rebuilt from _raw_data
         state["_X_search"] = None
@@ -706,6 +937,7 @@ class NNDescent:
         """Restore to the device named in the state; raises when that is a
         CUDA device and none is present."""
         self.__dict__.update(state)
+        self._ell_store_dev = None
         self.device = _resolve_device(state["device"])
         self._timer = PhaseTimer(getattr(self, "profile", False), self.device)
         self._X = torch.from_numpy(np.ascontiguousarray(self._raw_data)).to(self.device)
@@ -719,6 +951,8 @@ class NNDescent:
         self._make_search_copy()
         if self._quantized is not None:
             self._load_quantized()
+        if self._ell is not None:
+            self._set_ell_metric()
 
     def save(self, path):
         """Array checkpoint: one ``.npz`` with every flat array of the

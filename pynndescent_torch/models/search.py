@@ -94,11 +94,13 @@ def _seed_beam(queries, X, tree, lo, hi, rand_ids, *, beam_width: int, leaf_max:
 
 def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
                  min_distance: float, beam_width: int, dist_rowwise, max_steps: int,
-                 leaf_max: int, expansions_per_step: int = 2, tree_queries=None):
+                 leaf_max: int, expansions_per_step: int = 2, tree_queries=None, ell=None):
     """Search one block of queries (JAX search.py:49). ``tree`` is a dict
     from ``tree_to_device`` or None. ``tree_queries`` are the float queries
     for the tree descent when ``queries`` are encoded for a beam that runs on
-    codes. Returns (idx [q, k], dist [q, k], steps)."""
+    codes. ``ell`` = (query nnz, data nnz) for packed ELL rows, whose tree
+    margins go through ``sparse_dot``. Returns (idx [q, k], dist [q, k],
+    steps)."""
     q = queries.shape[0]
     n = X.shape[0]
     dev = queries.device
@@ -106,7 +108,7 @@ def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
     if tree is not None:
         coins = torch.randint(0, 1 << 32, (q,), generator=gen, device=dev, dtype=torch.int64)
         lo, hi = descend_tree(tree, X, queries if tree_queries is None else tree_queries, coins,
-                              tree["depth"], tree["angular"])
+                              tree["depth"], tree["angular"], ell=ell)
     rand_ids = torch.randint(0, n, (q, k), generator=gen, device=dev, dtype=torch.int32)
     state = _seed_beam(queries, X, tree, lo, hi, rand_ids, beam_width=beam_width,
                        leaf_max=leaf_max, dist_rowwise=dist_rowwise)
@@ -140,11 +142,12 @@ def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
 def search(queries, X, adj, tree, seed: int, *, k: int, epsilon: float = 0.1,
            min_distance: float = 0.0, beam_width: int | None = None, dist_rowwise=None,
            max_steps: int | None = None, batch_size: int = 8192, expansions_per_step: int = 2,
-           tree_queries=None):
+           tree_queries=None, ell=None):
     """Search driver over blocks of ``batch_size`` queries (JAX
     search.py:142). ``X`` holds the candidates the beam gathers: float rows,
-    ``uint8`` bit rows, or quantized codes (then ``tree_queries`` carries
-    the float queries for the tree descent). ``tree`` is a dict from
+    ``uint8`` bit rows, packed ELL rows (with ``ell``, the query and data
+    widths), or quantized codes (then ``tree_queries`` carries the float
+    queries for the tree descent). ``tree`` is a dict from
     ``tree_to_device`` or None. Returns (idx, dist) tensors on the queries'
     device."""
     nq = queries.shape[0]
@@ -169,7 +172,7 @@ def search(queries, X, adj, tree, seed: int, *, k: int, epsilon: float = 0.1,
             k=k, epsilon=epsilon, min_distance=float(min_distance), beam_width=int(beam_width),
             dist_rowwise=dist_rowwise, max_steps=int(max_steps), leaf_max=leaf_max,
             expansions_per_step=int(expansions_per_step),
-            tree_queries=None if tree_queries is None else tree_queries[s:e],
+            tree_queries=None if tree_queries is None else tree_queries[s:e], ell=ell,
         )
         out_idx.append(idx)
         out_dist.append(dist)

@@ -10,7 +10,7 @@ correction of final distances) and ``proxy_distances`` (cheap proxy plus the
 true metric for the rerank). The exact optimal-transport names
 (``kantorovich``, ``wasserstein``, ``sinkhorn`` and the proxies that rerank
 by them) are not ported yet: asking for one raises ``NotImplementedError``
-(ROADMAP A12).
+(ROADMAP A4).
 
 Three forms:
 
@@ -55,7 +55,7 @@ GRAM_METRICS = (
     "alternative_inner_product",
 )
 
-# exact optimal transport and the proxies that rerank by it (ROADMAP A12)
+# exact optimal transport and the proxies that rerank by it (ROADMAP A4)
 OT_METRICS = ("kantorovich", "wasserstein", "sinkhorn")
 OT_PROXY_METRICS = ("proxy_kantorovich", "proxy_wasserstein", "proxy_sinkhorn")
 
@@ -72,7 +72,7 @@ def check_metric(metric):
     if metric in OT_METRICS:
         raise NotImplementedError(
             f"metric '{metric}' (exact optimal transport) is not ported to the PyTorch "
-            "package yet (ROADMAP A12)")
+            "package yet (ROADMAP A4)")
     if metric not in named_distances:
         raise ValueError(f"Metric '{metric}' not recognized")
 
@@ -753,7 +753,7 @@ fast_distance_alternatives = {
 }
 
 # Cheap proxy + exact rerank. The entries whose true side is exact optimal
-# transport (OT_PROXY_METRICS) come with that module (ROADMAP A12).
+# transport (OT_PROXY_METRICS) come with that module (ROADMAP A4).
 proxy_distances = {
     "proxy_inner_product": {"proxy_dist": proxy_inner_product, "true_dist": inner_product},
     "proxy_wasserstein_1d": {"proxy_dist": proxy_wasserstein_1d, "true_dist": wasserstein_1d},

@@ -28,6 +28,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from pynndescent_torch.ops import sparse_ell as se
 from pynndescent_torch.ops.distances import popcount_sum
 
 _M32 = 0xFFFFFFFF
@@ -101,11 +102,14 @@ def _level_directions(seed: int, max_depth: int, d: int, device="cpu"):
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
 
 
-def _tree_norms(X, angular):
+def _tree_norms(X, angular, ell_nnz=None):
     """Row norms in fp32 (of the bfloat16 values for a bfloat16 ``X``: the
-    JAX package's jitted code keeps that arithmetic in fp32)."""
+    JAX package's jitted code keeps that arithmetic in fp32); of the values
+    half of packed ELL rows."""
     if not angular or X.dtype == torch.uint8:
         return torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    if ell_nnz is not None:
+        return torch.sqrt(se._sq_norm(X, ell_nnz))
     return torch.linalg.vector_norm(X, dim=-1, dtype=torch.float32)
 
 
@@ -187,18 +191,20 @@ def _fast_forest_orders(X, seeds, leaf_size: int, max_depth: int, angular: bool)
 
 
 def build_forest_orders(X, seeds, leaf_size: int, max_depth: int, angular: bool = False,
-                        fast: bool = True):
+                        ell_nnz: int | None = None, fast: bool = True):
     """Init forest over per-tree seeds -> ``(order, start, size)`` [T, n]
-    (JAX rp_trees.py:495). Float data takes the fast level-shared-projection
-    splits: mean splits are near balanced, so the depth is the ideal one plus
-    a small slack. Bit-packed (``uint8``) rows have no projections: each tree
-    is built by ``build_tree_order`` with random anchor pairs under the
-    popcount margin, one tree after the other."""
+    (JAX rp_trees.py:495). Dense float data takes the fast
+    level-shared-projection splits: mean splits are near balanced, so the
+    depth is the ideal one plus a small slack. Bit-packed (``uint8``) rows and
+    packed ELL rows (``ell_nnz``) have no projections: each tree is built by
+    ``build_tree_order`` with random anchor pairs under the popcount or the
+    sparse-dot margin, one tree after the other."""
     n = X.shape[0]
-    if fast and X.dtype != torch.uint8:
+    if fast and ell_nnz is None and X.dtype != torch.uint8:
         depth = min(max_depth, int(np.ceil(np.log2(max(n / max(leaf_size, 1), 1.0)))) + 4)
         return _fast_forest_orders(X, seeds, leaf_size, depth, angular)
-    outs = [build_tree_order(X, int(s), leaf_size, max_depth, angular) for s in seeds]
+    outs = [build_tree_order(X, int(s), leaf_size, max_depth, angular, ell_nnz=ell_nnz)
+            for s in seeds]
     return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
 
 
@@ -264,12 +270,21 @@ def _edge_cut_scores(order, start, sides, neighbor_idx, n):
     return torch.stack(cuts)
 
 
-def _anchor_scores(X, norms, x, pts, angular):
+def _anchor_scores(X, norms, x, pts, angular, ell_nnz=None):
     """Per-point score against anchor ids ``pts``; a pair's hyperplane
     margin is ``s_a - s_b``. Dense euclidean: <x, xa> - |xa|^2 / 2;
     angular: <x, xa> / |xa|; bit-packed: -hamming(x, xa), the closest-anchor
-    assignment. Computed in fp32 (from the bfloat16 values of a bfloat16
-    ``X``, as the jitted JAX code does)."""
+    assignment; packed ELL rows: the dense formulas through ``sparse_dot``,
+    with ``ell_nnz`` an int or, for rows x of another width than the anchors,
+    the pair (nnz of x, nnz of the anchors). Computed in fp32 (from the
+    bfloat16 values of a bfloat16 ``X``, as the jitted JAX code does)."""
+    if ell_nnz is not None:
+        nnz_x, nnz_a = ell_nnz if isinstance(ell_nnz, tuple) else (ell_nnz, ell_nnz)
+        xa = X[pts.to(torch.int64)]
+        da = se.sparse_dot(x, xa, nnz_x, nnz_a)
+        if angular:
+            return da / torch.clamp(norms[pts.to(torch.int64)], min=1e-8)
+        return da - 0.5 * se._sq_norm(xa, nnz_a)
     if X.dtype == torch.uint8:
         return -popcount_sum(x ^ X[pts.to(torch.int64)]).to(torch.float32)
     xa = X[pts.to(torch.int64)].to(torch.float32)
@@ -281,13 +296,13 @@ def _anchor_scores(X, norms, x, pts, angular):
 
 
 def _split_level(X, norms, order, start, size, level, seed, leaf_size, angular,
-                 degrees=None, sealed=None, neighbor_idx=None):
+                 degrees=None, ell_nnz=None, sealed=None, neighbor_idx=None):
     """Split every active node at one level (JAX rp_trees.py:207): random
     anchor pairs, or with ``degrees`` the hub splits. Dense float data keeps
     the best-balanced of the three hub pairs (nodes below MIN_SPLIT_BALANCE
-    seal as leaves); bit-packed data with ``neighbor_idx`` keeps the pair of
-    fewest graph edge cuts among those with two non-empty sides, and falls
-    back to the coin when all three are degenerate.
+    seal as leaves); packed ELL and bit-packed data with ``neighbor_idx``
+    keep the pair of fewest graph edge cuts among those with two non-empty
+    sides, and fall back to the coin when all three are degenerate.
     Returns ``(order, start, size, sealed), (a_pt, b_pt)``."""
     n = X.shape[0]
     dev = X.device
@@ -304,7 +319,7 @@ def _split_level(X, norms, order, start, size, level, seed, leaf_size, angular,
 
     if degrees is not None:
         h1, h2, h3 = _hub_anchor_points(order, start, size, degrees, n)
-        s1, s2, s3 = (_anchor_scores(X, norms, x, h, angular) for h in (h1, h2, h3))
+        s1, s2, s3 = (_anchor_scores(X, norms, x, h, angular, ell_nnz) for h in (h1, h2, h3))
         pairs = ((h1, h2, s1, s2), (h1, h3, s1, s3), (h2, h3, s2, s3))
         sides = torch.stack([side_of(sa - sb) for _, _, sa, sb in pairs])
         apts = torch.stack([p[0] for p in pairs])
@@ -313,7 +328,7 @@ def _split_level(X, norms, order, start, size, level, seed, leaf_size, angular,
         def take(a, which):
             return torch.gather(a, 0, which[None])[0]
 
-        if neighbor_idx is not None and X.dtype == torch.uint8:
+        if neighbor_idx is not None and (ell_nnz is not None or X.dtype == torch.uint8):
             # candidate 3 is the pure coin assignment
             cand_sides = torch.cat([sides, torch.where(done, false, coin)[None]])
             prefixes, totals = _segment_cumsum_stats((~cand_sides).to(torch.int32), start, size)
@@ -349,8 +364,8 @@ def _split_level(X, norms, order, start, size, level, seed, leaf_size, angular,
         b_off = torch.minimum(b_off, size - 1)
         a_pt = order[torch.clamp(start + a_off, 0, n - 1).to(torch.int64)]
         b_pt = order[torch.clamp(start + b_off, 0, n - 1).to(torch.int64)]
-        margin = _anchor_scores(X, norms, x, a_pt, angular) - _anchor_scores(
-            X, norms, x, b_pt, angular)
+        margin = _anchor_scores(X, norms, x, a_pt, angular, ell_nnz) - _anchor_scores(
+            X, norms, x, b_pt, angular, ell_nnz)
         side_m = side_of(margin)
         side_c = torch.where(done, false, coin)
         stacked = torch.stack([(~side_m).to(torch.int32), (~side_c).to(torch.int32)])
@@ -377,15 +392,15 @@ def _split_level(X, norms, order, start, size, level, seed, leaf_size, angular,
 
 
 def build_tree_order(X, seed: int, leaf_size: int, max_depth: int, angular: bool = False,
-                     degrees=None, neighbor_idx=None):
+                     ell_nnz: int | None = None, degrees=None, neighbor_idx=None):
     """Build one exact-split tree and return its node-location encoding
     ``(order, start, size)`` i32[n] (JAX rp_trees.py:348): random anchor
     pairs, or with ``degrees`` the hub splits. Used for the init forest of
-    bit-packed data and to score candidate search trees. Stops at the first
+    bit-packed and packed ELL data and to score candidate search trees. Stops at the first
     level where every node is a leaf (one host sync a level)."""
     n = X.shape[0]
     dev = X.device
-    norms = _tree_norms(X, angular)
+    norms = _tree_norms(X, angular, ell_nnz)
     order = torch.arange(n, dtype=torch.int32, device=dev)
     start = torch.zeros(n, dtype=torch.int32, device=dev)
     size = torch.full((n,), n, dtype=torch.int32, device=dev)
@@ -395,12 +410,12 @@ def build_tree_order(X, seed: int, leaf_size: int, max_depth: int, angular: bool
             break
         (order, start, size, sealed), _ = _split_level(
             X, norms, order, start, size, level, seed, leaf_size, angular,
-            degrees=degrees, sealed=sealed, neighbor_idx=neighbor_idx)
+            degrees=degrees, ell_nnz=ell_nnz, sealed=sealed, neighbor_idx=neighbor_idx)
     return order, start, size
 
 
 def build_tree_trace(X, seed: int, leaf_size: int, max_depth: int, angular: bool = False,
-                     degrees=None, neighbor_idx=None):
+                     degrees=None, ell_nnz: int | None = None, neighbor_idx=None):
     """Build one exact-split tree and return, per level, the node table the
     host flattener needs (JAX rp_trees.py:635): ``order`` and lists
     ``head_pos``/``head_size`` (depth + 1 entries) and ``head_a``/``head_b``
@@ -408,7 +423,7 @@ def build_tree_trace(X, seed: int, leaf_size: int, max_depth: int, angular: bool
     per level directly, so there is no compaction cap."""
     n = X.shape[0]
     dev = X.device
-    norms = _tree_norms(X, angular)
+    norms = _tree_norms(X, angular, ell_nnz)
     order = torch.arange(n, dtype=torch.int32, device=dev)
     start = torch.zeros(n, dtype=torch.int32, device=dev)
     size = torch.full((n,), n, dtype=torch.int32, device=dev)
@@ -424,7 +439,7 @@ def build_tree_trace(X, seed: int, leaf_size: int, max_depth: int, angular: bool
         hp, hs = compact(start, size)
         (order, new_start, new_size, sealed), (a_pt, b_pt) = _split_level(
             X, norms, order, start, size, level, seed, leaf_size, angular,
-            degrees=degrees, sealed=sealed, neighbor_idx=neighbor_idx,
+            degrees=degrees, ell_nnz=ell_nnz, sealed=sealed, neighbor_idx=neighbor_idx,
         )
         head_pos.append(hp.cpu().numpy())
         head_size.append(hs.cpu().numpy())
@@ -484,16 +499,20 @@ class FlatTree:
 
 def flatten_search_tree(X, seed: int, leaf_size: int, max_depth: int | None = None,
                         angular: bool = False, materialize: bool = False, degrees=None,
-                        neighbor_idx=None) -> FlatTree:
+                        ell_nnz: int | None = None, neighbor_idx=None) -> FlatTree:
     """Build one search tree on the device and flatten it on the host into
     query-descent arrays (JAX rp_trees.py:697, same breadth-first walk).
     With ``materialize`` the per-node hyperplanes and offsets are stored, so
-    that the descent does not need the float data (quantized indexes)."""
+    that the descent does not need the float data (quantized indexes); packed
+    ELL rows have none."""
     n = X.shape[0]
     if max_depth is None:
         max_depth = forest_depth(n, leaf_size)
+    if materialize and ell_nnz is not None:
+        raise ValueError("materialized hyperplanes are not available for ELL data")
     order, head_pos, head_size, head_a, head_b = build_tree_trace(
-        X, seed, leaf_size, max_depth, angular, degrees=degrees, neighbor_idx=neighbor_idx)
+        X, seed, leaf_size, max_depth, angular, degrees=degrees, ell_nnz=ell_nnz,
+        neighbor_idx=neighbor_idx)
     hub = degrees is not None
 
     def lookup(level, s):
@@ -574,22 +593,25 @@ def materialize_hyperplanes(X, a_pt, b_pt, angular: bool):
     return hyper, offset
 
 
-def descend_tree(tree, X, queries, coins, depth: int, angular: bool = False):
+def descend_tree(tree, X, queries, coins, depth: int, angular: bool = False, ell=None):
     """Vectorised query descent (JAX rp_trees.py:821). ``tree`` holds the
     FlatTree arrays as tensors on the queries' device; ``coins`` int64
     [q] carry 32 tie-break bits. A tree with materialized ``hyper`` /
-    ``offset`` is descended by them and ``X`` is not read. Returns (leaf_lo,
-    leaf_hi) [q]."""
+    ``offset`` is descended by them and ``X`` is not read. ``ell`` = (query
+    nnz, data nnz) marks packed ELL rows, whose margins go through
+    ``sparse_dot``. Returns (leaf_lo, leaf_hi) [q]."""
     q = queries.shape[0]
     node = torch.zeros(q, dtype=torch.int64, device=queries.device)
     has_planes = tree.get("hyper") is not None
-    norms = _tree_norms(X, True) if angular and not has_planes else None
+    norms = None
+    if angular and not has_planes:
+        norms = _tree_norms(X, True, None if ell is None else ell[1])
     for level in range(depth):
         if has_planes:
             margin = torch.sum(queries * tree["hyper"][node], dim=-1) - tree["offset"][node]
         else:
-            margin = _anchor_scores(X, norms, queries, tree["a_pt"][node], angular) - \
-                _anchor_scores(X, norms, queries, tree["b_pt"][node], angular)
+            margin = _anchor_scores(X, norms, queries, tree["a_pt"][node], angular, ell) - \
+                _anchor_scores(X, norms, queries, tree["b_pt"][node], angular, ell)
         coin = ((coins >> (level % 32)) & 1).to(torch.bool)
         side = torch.where(margin > 0, True, torch.where(margin < 0, False, coin))
         node = tree["child"][node, side.to(torch.int64)].to(torch.int64)

@@ -4,8 +4,9 @@ pynndescent_tpu/ops/sparse.py).
 The distances of a sparse matrix are those of its materialised rows, and
 dense tiles are what the card computes fastest, so scipy input of up to
 ``DENSIFY_MAX_FEATURES`` columns is densified whole and runs through the
-dense pipeline unchanged. Wider input needs the padded-ELL path, which is not
-ported yet (ROADMAP A12).
+dense pipeline unchanged. ``NNDescent`` routes wider input elsewhere: through
+a dense sketch with an exact rerank (ops/sketch.py) or through the exact
+padded-ELL rows (ops/sparse_ell.py), as ``sketch.resolve`` decides.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ def densify(data, max_features: int = DENSIFY_MAX_FEATURES) -> np.ndarray:
     """Materialise CSR input for the dense pipeline."""
     csr = data.tocsr()
     if csr.shape[1] > max_features:
-        raise NotImplementedError(
-            f"sparse input with {csr.shape[1]} features (> {max_features}) needs the "
-            "padded-ELL path, which is not ported to the PyTorch package yet (ROADMAP A12)")
+        raise ValueError(
+            f"sparse input with {csr.shape[1]} features (> {max_features}) is not densified: "
+            "NNDescent takes it through the sketch or the padded-ELL route "
+            "(ops/sketch.py, ops/sparse_ell.py)")
     return np.ascontiguousarray(csr.toarray().astype(np.float32))

@@ -16,8 +16,7 @@ from pynndescent_torch.ops import rp_trees
 from pynndescent_torch.ops.neighbors import NeighborState
 
 # attributes that exist only in the JAX package's state
-_JAX_ONLY = ("_key", "_incomplete_dev", "_graph_exact", "_graph_exact_ot", "_visited", "_build_k",
-             "_ell", "_sketch", "_ell_store", "_ell_internal_name", "devices", "shard_data",
+_JAX_ONLY = ("_key", "_incomplete_dev", "_graph_exact_ot", "_visited", "devices", "shard_data",
              "_quantized_codes_dev", "_mesh")
 
 
@@ -57,10 +56,11 @@ def index_from_arrays(arrays: dict, device="cuda", search_dtype="bfloat16",
     if quantized is not None:
         quantized = {k: (v if isinstance(v, str) else np.ascontiguousarray(v))
                      for k, v in quantized.items()}
+    n_neighbors = int(arrays.get("n_neighbors", np.asarray(gi).shape[1]))
     state = dict(
         metric=metric,
         metric_kwds=dict(arrays.get("metric_kwds") or {}),
-        n_neighbors=int(arrays.get("n_neighbors", np.asarray(gi).shape[1])),
+        n_neighbors=n_neighbors,
         dim=data.shape[1],
         search_dtype=search_dtype,
         beam_width=None,
@@ -78,6 +78,11 @@ def index_from_arrays(arrays: dict, device="cuda", search_dtype="bfloat16",
         _min_distance=float(arrays["min_distance"]),
         _search_tree=rp_trees.FlatTree.from_arrays(arrays["search_tree"]).to_arrays(),
         _quantized=quantized,
+        _build_k=n_neighbors,
+        _ell=None,
+        _sketch=None,
+        _ell_store=None,
+        _graph_exact=None,
     )
     return NNDescent._from_host_state(state, device)
 
@@ -85,15 +90,10 @@ def index_from_arrays(arrays: dict, device="cuda", search_dtype="bfloat16",
 def index_from_checkpoint(path, device="cuda") -> NNDescent:
     """A port ``NNDescent`` that answers queries, from a ``.npz`` written by
     the JAX package's ``NNDescent.save()`` (flat arrays by attribute path
-    plus the ``__meta__`` JSON). The JAX-only entries (the threefry key,
-    mesh and sparse-path attributes) are dropped; the root seed is kept. A
-    file of a wide-sparse (padded-ELL or sketch) index raises
-    ``NotImplementedError``."""
+    plus the ``__meta__`` JSON), dense or wide sparse (padded-ELL rows, or
+    a sketch with its packed store). The JAX-only entries (the threefry key,
+    the mesh) are dropped; the root seed is kept."""
     state = NNDescent._read_checkpoint(path)
-    if state.get("_ell") is not None or state.get("_sketch") is not None:
-        raise NotImplementedError(
-            "checkpoints of wide sparse indexes are not ported to the PyTorch package yet "
-            "(ROADMAP A12)")
     for key in _JAX_ONLY:
         state.pop(key, None)
     return NNDescent._from_host_state(state, device)

@@ -2,7 +2,8 @@
 ``index.phase_times_``), the counterpart of pynndescent_tpu/utils/profiling.py.
 
 CUDA runs asynchronously, so each phase exit synchronises the device when
-profiling is on; when it is off no synchronisation is added. A directory
+profiling is on; when it is off no synchronisation is added. Each phase is
+also a ``phase/<name>`` range of ``torch.profiler``. A directory
 given as ``profile`` additionally records a ``torch.profiler`` trace of the
 build there.
 """
@@ -33,7 +34,9 @@ class PhaseTimer:
         self.block()
         t0 = time.perf_counter()
         try:
-            yield self
+            # a range of its own in a torch.profiler trace of the build
+            with torch.profiler.record_function(f"phase/{name}"):
+                yield self
         finally:
             self.block()
             self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0

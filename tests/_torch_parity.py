@@ -50,6 +50,46 @@ def exact_knn(X, Q, k, metric="euclidean"):
     return np.concatenate(out)
 
 
+# a feature count past the densification limit: the wide-sparse routes
+WIDE = 16384 + 50
+
+
+def clustered_wide_sparse(n_pts, d, seed=0, n_centers=25, density=0.001):
+    """tests/test_sparse_ell.py's generator: rows of 25 sparse centres plus
+    sparse noise at a tenth of the scale (wider rows than the centres)."""
+    from scipy import sparse
+
+    rs = np.random.RandomState(seed)
+    base = sparse.random(n_centers, d, density=density, random_state=rs, format="csr",
+                         dtype=np.float32)
+    rows = [base[rs.randint(n_centers)]
+            + 0.1 * sparse.random(1, d, density=density / 4, random_state=rs, format="csr",
+                                  dtype=np.float32)
+            for _ in range(n_pts)]
+    return sparse.vstack(rows).tocsr()
+
+
+def topic_corpus(n_pts, d, nnz, seed, n_topics=20):
+    """tests/test_sketch.py's generator: clustered sparse rows over shared
+    topic vocabularies (cosine- and jaccard-informative)."""
+    from scipy import sparse
+
+    rs = np.random.RandomState(seed)
+    topic_cols = [rs.choice(d, 6 * nnz, replace=False) for _ in range(n_topics)]
+    rows = np.repeat(np.arange(n_pts), nnz)
+    cols = np.concatenate([rs.choice(topic_cols[i % n_topics], nnz, replace=False)
+                           for i in range(n_pts)])
+    vals = rs.uniform(0.1, 1.0, n_pts * nnz).astype(np.float32)
+    X = sparse.csr_matrix((vals, (rows, cols)), shape=(n_pts, d))
+    X.sum_duplicates()
+    return X
+
+
+def exact_graph(D, k):
+    """The k smallest entries of each row of a distance matrix (stable)."""
+    return np.argsort(D, axis=1, kind="stable")[:, :k].astype(np.int32)
+
+
 def recall(found, truth):
     k = truth.shape[1]
     found = np.asarray(found)

@@ -101,5 +101,10 @@ def test_checkpoint_of_a_wide_sparse_index_raises(tmp_path):
     index = JaxNNDescent(X, n_neighbors=5, random_state=1, sparse_sketch=None)
     path = str(tmp_path / "ell.npz")
     index.save(path)
-    with pytest.raises(NotImplementedError, match="A12"):
-        index_from_checkpoint(path, device="cpu")
+    # the checkpoint loads (tests/test_torch_sparse_index.py holds its answers
+    # to the JAX index's); what raises is a dense query to the wide index
+    port = index_from_checkpoint(path, device="cpu")
+    assert port._ell == index._ell
+    np.testing.assert_array_equal(port.neighbor_graph[0], np.asarray(index.neighbor_graph[0]))
+    with pytest.raises(ValueError, match="scipy sparse"):
+        port.query(np.zeros((2, 30_000), np.float32), k=3)

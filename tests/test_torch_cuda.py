@@ -290,3 +290,57 @@ def test_update_on_card_launches_the_small_forest(cuda_device):
     assert ik.LAUNCHES["leaf_allpairs"] == index.n_trees_after_update
     assert index._X.shape[0] == 3300 and index._X.device.type == "cuda"
     assert recall(index.neighbor_graph[0], exact_knn(X, X, 10)) >= 0.95
+
+
+# ---------------------------------------------------------------------------
+# wide sparse input on the card: no kernel lies on this path; the minhash
+# encoders and the tagged sorts run as torch ops on the index's device
+# ---------------------------------------------------------------------------
+
+
+def test_minhash_signatures_on_card_equal_cpu(cuda_device):
+    from _torch_parity import WIDE, topic_corpus
+    from pynndescent_torch.ops import sketch as sk
+
+    X = topic_corpus(700, WIDE, nnz=30, seed=3)
+    for seed in (5, 0x5EED):
+        np.testing.assert_array_equal(sk.sign_minhash_sketch_csr(X, 256, seed, "cuda"),
+                                      sk.sign_minhash_sketch_csr(X, 256, seed, "cpu"))
+        np.testing.assert_array_equal(sk.minhash_sketch_csr(X, 128, seed, "cuda"),
+                                      sk.minhash_sketch_csr(X, 128, seed, "cpu"))
+
+
+def test_ell_primitives_on_card_equal_cpu(cuda_device):
+    from _torch_parity import WIDE, clustered_wide_sparse
+    from pynndescent_torch.ops import sparse_ell as se
+
+    P = se.csr_to_ell_packed(clustered_wide_sparse(60, WIDE, seed=1))
+    nnz = P.shape[1] // 2
+    a, b = t(P)[:, None, :], t(P)[None]
+    for compact in (False, True):
+        for g, w in zip(se.union_pairs(a.to(cuda_device), b.to(cuda_device), nnz, compact=compact),
+                        se.union_pairs(a, b, nnz, compact=compact)):
+            np.testing.assert_array_equal(n(g), n(w))
+    np.testing.assert_allclose(n(se.sparse_dot(a.to(cuda_device), b.to(cuda_device), nnz)),
+                               n(se.sparse_dot(a, b, nnz)), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kw", [{"sparse_sketch": None}, {"sparse_sketch": 256}],
+                         ids=["exact_ell", "hash_sketch"])
+def test_wide_sparse_routes_on_card_match_cpu(cuda_device, kw):
+    from _torch_parity import WIDE, exact_graph, topic_corpus
+
+    X = topic_corpus(600, WIDE, nnz=24, seed=2)
+    dense = X.toarray().astype(np.float64)
+    unit = dense / np.linalg.norm(dense, axis=1, keepdims=True)
+    D = 1.0 - unit @ unit.T
+    truth = exact_graph(D, 8)
+    ik.reset_launch_counts()
+    on_card = NNDescent(X, metric="cosine", n_neighbors=8, random_state=42, device="cuda", **kw)
+    gi, gd = on_card.neighbor_graph
+    qi, qd = on_card.query(X[:50], k=5, epsilon=0.3)
+    assert ik.LAUNCHES["leaf_allpairs"] == 0 and ik.LAUNCHES["window_topm"] == 0
+    on_cpu = NNDescent(X, metric="cosine", n_neighbors=8, random_state=42, device="cpu", **kw)
+    assert abs(recall(gi, truth) - recall(on_cpu.neighbor_graph[0], truth)) <= 0.02
+    np.testing.assert_allclose(gd, np.take_along_axis(D, gi, 1), rtol=1e-5, atol=5e-7)
+    np.testing.assert_allclose(qd, np.take_along_axis(D[:50], qi, 1), rtol=1e-5, atol=5e-7)

@@ -159,7 +159,7 @@ def test_locality_windowed_descent_recall():
     np.testing.assert_allclose(dist, exact, rtol=1e-4, atol=1e-4)
 
 
-def test_hub_heavy_reverse_diversify():
+def test_port_hub_heavy_reverse_diversify():
     rs = np.random.RandomState(11)
     shell = rs.randn(799, 32).astype(np.float32)
     shell /= np.linalg.norm(shell, axis=1, keepdims=True)
@@ -237,20 +237,33 @@ def test_input_rejected(nn_data):
 ])
 def test_unported_options_raise(nn_data, kwargs):
     """What is still to be ported names its ROADMAP item: exact optimal
-    transport and the proxies that rerank by it (A12), meshes (A13)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[23]"):
+    transport and the proxies that rerank by it (A4), meshes (A5)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A[45]"):
         _port(nn_data[:100], **kwargs)
 
 
 def test_sparse_input_raises():
-    """Sparse input wider than the densification limit needs the padded-ELL
-    path; narrower input builds through the dense path (test_torch_api.py)."""
+    """Sparse input wider than the densification limit is not densified (that
+    raises) but builds and answers through the sketch or the padded-ELL
+    route; a dense query to such an index raises. Narrower input builds
+    through the dense path (test_torch_api.py)."""
     from scipy import sparse
 
-    wide = sparse.random(50, 20_000, density=0.001, format="csr", dtype=np.float32,
+    from pynndescent_torch.ops import sparse as sparse_ops
+
+    wide = sparse.random(120, 20_000, density=0.002, format="csr", dtype=np.float32,
                          random_state=np.random.RandomState(0))
-    with pytest.raises(NotImplementedError, match="A12"):
-        _port(wide)
+    with pytest.raises(ValueError, match="sketch or the padded-ELL route"):
+        sparse_ops.densify(wide)
+    for kw in ({"metric": "cosine", "sparse_sketch": 256}, {"metric": "manhattan"}):
+        index = _port(wide, n_neighbors=5, n_trees=2, **kw)
+        assert (index._sketch is not None) == ("sparse_sketch" in kw)
+        assert (index._ell is not None) != ("sparse_sketch" in kw)
+        qi, qd = index.query(wide[:10], k=3, epsilon=0.2)
+        assert qi.shape == (10, 3) and (qi >= 0).all() and np.isfinite(qd).all()
+        assert (qd[:, 0] <= 1e-6).all()  # every query row is in the index
+        with pytest.raises(ValueError, match="scipy sparse"):
+            index.query(np.zeros((2, 20_000), np.float32), k=3)
 
 
 # ---------------------------------------------------------------------------

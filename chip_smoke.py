@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases setup,kernels   # build the kernels, phase 2 alone
     python3 chip_smoke.py --phases mnist784,metrics  # any subset, by name
     python3 chip_smoke.py --phases sparse_cosine,sparse_jaccard,sparse_ell  # wide CSR
+    python3 chip_smoke.py --phases setup,ot,mesh   # optimal transport, multi-device
 
 Phases, each printing its own line; any failure raises and the script exits
 non-zero:
@@ -36,7 +37,22 @@ non-zero:
 12. sparse_ell: the same corpus under cosine with the sketch off: the exact
     padded-ELL route, and the share of its descent spent in tagged sorts.
     Phases 10-12 launch no kernel; every distance they return must equal the
-    exact scipy value.
+    exact scipy value;
+13. ot: 20,000 clustered 32-bin histograms, 1,000 queries, under
+    ``kantorovich`` with the cost |i - j| (every returned distance against the
+    closed form of the 1-D Wasserstein distance, recall against its
+    brute-force oracle) and under ``sinkhorn`` (every returned distance
+    against the same scaling in float64 numpy on the host, recall against
+    ``sinkhorn_distance_batch`` over 100 sampled queries and all rows);
+14. mesh: the 1M x 128 cell of phase 5 built over a 4-shard mesh (four
+    cards where there are four, else the one card four times), prepared and
+    queried, beside phase 5's oracle and graph and two one-device builds
+    with ``locality=None``: the leaf-kernel init, and the gather init the
+    mesh build runs (``nn_descent(kernel_init=False)``, which the mesh graph
+    must equal where it misses the floor); ``update()`` with 100,000 fresh
+    rows and a pickle round trip with identical answers; then
+    ``shard_data=True`` on the same cell.
+    Phases 13-14 launch no kernel (neither package has one on these paths).
 
 The last two lines are a JSON object describing the kernels and, last,
 ``{"ok": true, "device": {...}}``. Recall is measured against an exact fp32
@@ -86,9 +102,10 @@ def make_data(n, nq, d, seed=42, n_extra=0):
     return (train, queries, draw(n_extra)) if n_extra else (train, queries)
 
 
-def make_sift_like(n, nq, d=128, dz=16, seed=42):
+def make_sift_like(n, nq, d=128, dz=16, seed=42, n_extra=0):
     """bench.py::run_1m_workload's latent generator in numpy: dz-dimensional
-    clustered latents embedded by an orthonormal frame, plus 0.1 noise."""
+    clustered latents embedded by an orthonormal frame, plus 0.1 noise. With
+    ``n_extra`` a third array of further rows from the same latents and frame."""
     rs = np.random.RandomState(seed)
     centers_z = rs.randn(1000, dz).astype(np.float32) * 5
     W = np.linalg.qr(rs.randn(d, dz))[0].T.astype(np.float32)
@@ -98,7 +115,8 @@ def make_sift_like(n, nq, d=128, dz=16, seed=42):
         z = centers_z[ids] + r.randn(m, dz).astype(np.float32)
         return (z @ W + 0.1 * r.randn(m, d).astype(np.float32)).astype(np.float32)
 
-    return gen(np.random.RandomState(seed), n), gen(np.random.RandomState(seed + 1), nq)
+    out = (gen(np.random.RandomState(seed), n), gen(np.random.RandomState(seed + 1), nq))
+    return out + (gen(np.random.RandomState(seed + 2), n_extra),) if n_extra else out
 
 
 def exact_knn(torch, X, Q, k, block=262144, p=2.0, with_distances=False):
@@ -575,12 +593,13 @@ def _add_path_launches(state, launches):
 
 
 def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_recall,
-                     retry_epsilon=None, keep=False, **kw):
+                     retry_epsilon=None, keep=False, oracle=None, **kw):
     """One main path: build -> prepare -> query on the card, with the launch
     counts set to 0 just before and read just after. A query recall under the
     floor at ``epsilon`` is printed and, with ``retry_epsilon``, the query
     runs again there and that reading is held to the floor. With ``keep`` the
-    index comes back too, beside the epsilon that held."""
+    index comes back too, beside the epsilon that held. ``oracle`` (a dict)
+    receives the sampled rows, their exact neighbors and the built graph."""
     from pynndescent_torch import NNDescent
     from pynndescent_torch.ops import init_kernels as ik
 
@@ -611,7 +630,10 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
     if graph_recall:
         gs = np.random.RandomState(1).choice(len(train), N_SAMPLE, replace=False)
         gi, _ = index.neighbor_graph
-        g_rec = recall(gi[gs], exact_knn(torch, X, X[torch.from_numpy(gs).to(dev)], 10))
+        g_truth = exact_knn(torch, X, X[torch.from_numpy(gs).to(dev)], 10)
+        g_rec = recall(gi[gs], g_truth)
+        if oracle is not None:
+            oracle.update(sample=sample, truth=truth, gs=gs, g_truth=g_truth, graph=gi)
     times = {k: round(v, 3) for k, v in index.phase_times_.items()}
     tree = index._search_tree
     largest_leaf = int((tree["leaf_hi"] - tree["leaf_lo"]).max())
@@ -654,7 +676,7 @@ def phase_100k_cosine(torch, state):
 def phase_1m(torch, state):
     train, queries = make_sift_like(1_000_000, 10_000)
     launches = _build_and_query(torch, state, "5 1M euclidean", train, queries, "euclidean",
-                                0.25, True)
+                                0.25, True, oracle=state.setdefault("oracle_1m", {}))
     for name in ("window_topm", "row_sqnorms"):  # the sweep's shape takes the tiled kernel
         if launches[name] != 12:
             raise AssertionError(f"{name} launched {launches[name]} times, expected 12")
@@ -1178,11 +1200,299 @@ def phase_sparse_ell(torch, state):
         f"{state['card']}")
 
 
+def make_histograms(n, nq, bins=32, seed=50, n_centers=200):
+    """Clustered positive histograms (colour- or image-histogram-like): 200
+    gamma-distributed prototypes, each row a prototype times log-normal
+    noise, normalised to unit mass."""
+    rs = np.random.RandomState(seed)
+    centers = rs.gamma(0.8, size=(n_centers, bins))
+
+    def draw(m):
+        h = centers[rs.randint(0, n_centers, m)] * rs.lognormal(0.0, 0.35, (m, bins))
+        return (h / h.sum(1, keepdims=True)).astype(np.float32)
+
+    return draw(n), draw(nq)
+
+
+def _no_launches(tag, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: a kernel launched on a path that has none: {launches}")
+
+
+def _ot_cell(torch, state, tag, metric, train, queries, cost, truth, sample, gs, g_truth,
+             exact_pairs, rtol):
+    """One optimal-transport index: build -> prepare -> query, the exact
+    rerank and ``neighbor_graph`` timed, every returned distance held to
+    ``exact_pairs`` (A rows, B rows -> exact distances) at ``rtol``."""
+    from pynndescent_torch import NNDescent
+    from pynndescent_torch.ops import init_kernels as ik
+
+    ik.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = NNDescent(train, metric=metric, metric_kwds={"cost": cost}, n_neighbors=10,
+                      random_state=42, device="cuda", profile=True)
+    index.prepare()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qi, qd = index.query(queries, k=10, epsilon=0.2)
+    query_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gi, gd = index.neighbor_graph
+    graph_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ik.LAUNCHES)
+    _no_launches(tag, launches)
+    q_rows = np.repeat(np.arange(len(queries)), 10)
+    want_q = exact_pairs(queries[q_rows], train[qi.reshape(-1)]).reshape(qi.shape)
+    g_rows = np.repeat(gs, 10)
+    want_g = exact_pairs(train[g_rows], train[gi[gs].reshape(-1)]).reshape(len(gs), 10)
+    # relative error of every returned distance (an absolute 1e-7 where the
+    # exact value is 0: a row's distance to itself)
+    err = max(float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-3)))
+              for got, want in ((qd, want_q), (gd[gs], want_g)))
+    zero_err = max(float(np.max(np.abs(got - want), initial=0.0, where=np.abs(want) < 1e-3))
+                   for got, want in ((qd, want_q), (gd[gs], want_g)))
+    q_rec = recall(qi[sample], truth)
+    g_rec = recall(gi[gs], g_truth)
+    times = {k: round(v, 3) for k, v in index.phase_times_.items()}
+    log(f"[{tag}] {len(train)}x{train.shape[1]} histograms {metric}: build+prepare {build_s:.2f} s, "
+        f"query {query_s:.2f} s ({len(queries) / query_s:.0f} QPS, eps 0.2, exact rerank "
+        f"{times.get('query/rerank', 0.0):.3f} s), neighbor_graph (exact, {gi.size} pairs) "
+        f"{graph_s:.2f} s; recall@10 query {q_rec:.4f} ({len(sample)} queries) graph {g_rec:.4f} "
+        f"({len(gs)} rows); max relative error of a returned distance {err:.3g} (limit {rtol}; "
+        f"absolute {zero_err:.3g} where the exact value is under 1e-3); "
+        f"peak device memory {peak} bytes; launches {launches}; phase_times {times} | "
+        f"{state['card']}")
+    if err > rtol or zero_err > 1e-7 or not np.isfinite(qd).all():
+        raise AssertionError(f"{tag}: returned distances are not the exact metric")
+    if not (np.diff(qd, axis=1) >= 0).all() or not (np.diff(gd, axis=1) >= 0).all():
+        raise AssertionError(f"{tag}: rows are not ordered by the exact metric")
+    del index
+    torch.cuda.empty_cache()
+
+
+def phase_ot(torch, state):
+    """Optimal-transport metrics on histograms: the host Kantorovich rerank
+    and the batched Sinkhorn on the card."""
+    from pynndescent_torch.ops import optimal_transport as ot
+
+    dev = torch.device("cuda")
+    bins = 32
+    train, queries = make_histograms(20_000, 1_000, bins)
+    pos = np.arange(bins, dtype=np.float64)
+    cost = np.abs(pos[:, None] - pos[None, :])
+    gs = np.random.RandomState(1).choice(len(train), N_SAMPLE, replace=False)
+
+    # kantorovich with the cost |i - j| is the 1-D Wasserstein distance: the
+    # L1 distance of the cumulative masses, an exact brute-force oracle
+    def cdf(a):
+        a = np.asarray(a, np.float64)
+        return np.cumsum(a / a.sum(1, keepdims=True), axis=1)
+
+    def w1(A, B):
+        return np.abs(cdf(A) - cdf(B)).sum(1)
+
+    C = torch.from_numpy(cdf(train)).to(dev)
+    truth = exact_knn(torch, C, torch.from_numpy(cdf(queries)).to(dev), 10, p=1.0)
+    g_truth = exact_knn(torch, C, C[torch.from_numpy(gs).to(dev)], 10, p=1.0)
+    all_q = np.arange(len(queries))
+    _ot_cell(torch, state, "13 ot", "kantorovich", train, queries, cost, truth, all_q, gs, g_truth,
+             w1, 1e-4)
+    del C
+
+    # sinkhorn: every returned distance against the same log-domain scaling
+    # (32 iterations, regularization 1, the 1e-35 floor) in float64 numpy on
+    # the host; the recall oracle is sinkhorn_distance_batch of 100 sampled
+    # queries against every row, on the card
+    Xd = torch.from_numpy(train).to(dev)
+
+    def logsumexp(v, axis):
+        top = v.max(axis=axis, keepdims=True)
+        return np.squeeze(top, axis) + np.log(np.exp(v - top).sum(axis=axis))
+
+    def sink64(A, B, iters=32, block=2048):
+        out = []
+        for s0 in range(0, len(A), block):
+            a = np.asarray(A[s0:s0 + block], np.float64)
+            b = np.asarray(B[s0:s0 + block], np.float64)
+            la = np.log(np.maximum(a / a.sum(1, keepdims=True), 1e-35))
+            lb = np.log(np.maximum(b / b.sum(1, keepdims=True), 1e-35))
+            f, g = np.zeros_like(la), np.zeros_like(lb)
+            for _ in range(iters):
+                f = la - logsumexp(-cost[None] + g[:, None, :], 2)
+                g = lb - logsumexp(-cost[None] + f[:, :, None], 1)
+            out.append((np.exp(f[:, :, None] - cost[None] + g[:, None, :]) * cost).sum((1, 2)))
+        return np.concatenate(out)
+
+    qs = np.random.RandomState(0).choice(len(queries), 100, replace=False)
+    t0 = time.perf_counter()
+    D = torch.stack([ot.sinkhorn_distance_batch(
+        torch.from_numpy(queries[i]).to(dev).expand(len(train), bins), Xd, cost) for i in qs])
+    truth_s = torch.topk(D, 10, dim=1, largest=False).indices.cpu().numpy()
+    gD = torch.stack([ot.sinkhorn_distance_batch(Xd[i].expand(len(train), bins), Xd, cost)
+                      for i in torch.from_numpy(gs[:100]).to(dev)])
+    g_truth_s = torch.topk(gD, 10, dim=1, largest=False).indices.cpu().numpy()
+    oracle_s = time.perf_counter() - t0
+    log(f"[13 ot] sinkhorn oracle: {len(qs) * len(train) * 2} pairs by sinkhorn_distance_batch in "
+        f"{oracle_s:.2f} s | {state['card']}")
+    del D, gD, Xd
+    _ot_cell(torch, state, "13 ot", "sinkhorn", train, queries, cost, truth_s, qs, gs[:100],
+             g_truth_s, sink64, 1e-5)
+
+
+def _mesh_devices(torch):
+    if torch.cuda.device_count() >= 4:
+        return [torch.device("cuda", i) for i in range(4)], "four distinct cards"
+    return [torch.device("cuda", 0)] * 4, "cuda:0 four times (one card: not a multi-GPU measurement)"
+
+
+def _peaks(torch, devices):
+    return {str(d): torch.cuda.max_memory_allocated(d) for d in dict.fromkeys(devices)}
+
+
+def phase_mesh(torch, state):
+    """Multi-device builds and search: the 1M cell over a 4-shard mesh, then
+    ``shard_data=True``, ``update()`` and a pickle round trip."""
+    import pickle
+
+    from pynndescent_torch import NNDescent
+    from pynndescent_torch.ops import init_kernels as ik
+
+    card = state["card"]
+    devices, which = _mesh_devices(torch)
+    dev = devices[0]
+    train, queries, fresh = make_sift_like(1_000_000, 10_000, n_extra=100_000)
+    q_dev = torch.from_numpy(queries).to(dev)
+    X = torch.from_numpy(train).to(dev)
+    oracle = state.get("oracle_1m")
+    if not oracle:  # phase 5 did not run in this call: its oracle, computed here
+        sample = np.random.RandomState(0).choice(len(queries), N_SAMPLE, replace=False)
+        gs = np.random.RandomState(1).choice(len(train), N_SAMPLE, replace=False)
+        oracle = dict(sample=sample, gs=gs,
+                      truth=exact_knn(torch, X, q_dev[torch.from_numpy(sample).to(dev)], 10),
+                      g_truth=exact_knn(torch, X, X[torch.from_numpy(gs).to(dev)], 10))
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+    ik.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = NNDescent(train, n_neighbors=10, random_state=42, devices=devices, profile=True)
+    index.prepare()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qi, qd = index.query(q_dev, k=10, epsilon=0.25)
+    query_s = time.perf_counter() - t0
+    launches = dict(ik.LAUNCHES)
+    _no_launches("14 mesh", launches)
+    gi, _ = index.neighbor_graph
+    q_rec = recall(qi[oracle["sample"]], oracle["truth"])
+    g_rec = recall(gi[oracle["gs"]], oracle["g_truth"])
+    times = {k: round(v, 3) for k, v in index.phase_times_.items()}
+    peaks = _peaks(torch, devices)
+
+    # two one-device builds without the locality phases (which a mesh build
+    # drops, as the JAX package's does): the index's, whose forest init is
+    # the leaf kernel, and nn_descent with the gather init the mesh build
+    # runs, called with no devices
+    from pynndescent_torch.ops import nndescent as nnd_ops
+
+    def overlap(other):
+        return float((gi[:, :, None] == other[:, None, :]).any(-1).mean())
+
+    def graph_recall(g):
+        return recall(g[oracle["gs"]], oracle["g_truth"])
+
+    t0 = time.perf_counter()
+    no_loc = NNDescent(train, n_neighbors=10, random_state=42, locality=None).neighbor_graph[0]
+    no_loc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gather, _ = nnd_ops.nn_descent(
+        index._X, 10, index._root_seed, metric=index._internal_metric, n_iters=index.n_iters,
+        max_candidates=index.max_candidates, forest=index._build_forest(index.n_trees),
+        leaf_cap=min(index.leaf_size, 64), kernel_init=False)
+    gather = gather.cpu().numpy()
+    gather_s = time.perf_counter() - t0
+    single = oracle.get("graph")
+    with_5 = ("not measured (phase 1m did not run)" if single is None else
+              f"{overlap(single):.4f} (its graph recall {graph_recall(single):.4f})")
+    log(f"[14 mesh] 1M x 128 over {index._mesh} ({which}): build+prepare {build_s:.2f} s, query "
+        f"{query_s:.2f} s ({len(queries) / query_s:.0f} QPS, eps 0.25), recall@10 query "
+        f"{q_rec:.4f} graph {g_rec:.4f}; graph overlap with phase 5's single-device build "
+        f"(locality='auto', leaf kernel) {with_5}; with a single-device build with "
+        f"locality=None ({no_loc_s:.2f} s) {overlap(no_loc):.4f} (its graph recall "
+        f"{graph_recall(no_loc):.4f}); with a single-device nn_descent with the gather init "
+        f"and locality=None ({gather_s:.2f} s) {overlap(gather):.4f} (its graph recall "
+        f"{graph_recall(gather):.4f}); peak memory {peaks} bytes; launches {launches}; "
+        f"phase_times {times} | {card}")
+    # under the graph floor only as far as the one-device build with the same
+    # init is: the mesh must give that build's graph
+    same = overlap(gather) >= 0.99 and abs(g_rec - graph_recall(gather)) <= 0.005
+    if q_rec < RECALL_FLOOR or (g_rec < RECALL_FLOOR and not same):
+        raise AssertionError(f"mesh: recall below {RECALL_FLOOR}, and not the graph of the "
+                             "one-device build with the gather init")
+    del no_loc, gather
+
+    # update() with 10% fresh rows over the mesh, then a pickle round trip
+    ik.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.update(xs_fresh=fresh)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    _no_launches("14 mesh update", dict(ik.LAUNCHES))
+    qf, _ = index.query(torch.from_numpy(fresh[:N_SAMPLE]).to(dev), k=10, epsilon=0.25)
+    self_found = float(np.mean((qf == (len(train) + np.arange(N_SAMPLE))[:, None]).any(1)))
+    want = index.query(q_dev, k=10, epsilon=0.25)
+    t0 = time.perf_counter()
+    blob = pickle.dumps(index)
+    again = pickle.loads(blob)
+    pickle_s = time.perf_counter() - t0
+    if again._mesh != index._mesh:
+        raise AssertionError("mesh: pickling lost the mesh")
+    _same_answers("mesh pickle", again.query(q_dev, k=10, epsilon=0.25), want)
+    log(f"[14 mesh] update(xs_fresh=100000): {update_s:.2f} s, share of {N_SAMPLE} fresh rows "
+        f"in their own top 10 {self_found:.4f}; pickle {len(blob)} bytes, dumps+loads {pickle_s:.2f} s, mesh "
+        f"kept, answers identical | {card}")
+    if self_found < RECALL_FLOOR:
+        raise AssertionError("mesh update: fresh rows are not found")
+    del index, again, blob, X
+    torch.cuda.empty_cache()
+
+    # shard_data=True on the same cell: X row-sharded as well, candidate
+    # rows through the ring
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+    ik.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = NNDescent(train, n_neighbors=10, random_state=42, devices=devices, shard_data=True,
+                      profile=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gi, _ = index.neighbor_graph
+    qi, _ = index.query(q_dev, k=10, epsilon=0.25)
+    _no_launches("14 mesh shard_data", dict(ik.LAUNCHES))
+    g_rec = recall(gi[oracle["gs"]], oracle["g_truth"])
+    q_rec = recall(qi[oracle["sample"]], oracle["truth"])
+    log(f"[14 mesh] shard_data=True on the 1M x 128 cell: build {build_s:.2f} s "
+        f"({ {k: round(v, 3) for k, v in index.phase_times_.items()} }), recall@10 graph "
+        f"{g_rec:.4f} query {q_rec:.4f} at eps 0.25; peak memory "
+        f"{_peaks(torch, devices)} bytes | {card}")
+    if g_rec < RECALL_FLOOR or q_rec < RECALL_FLOOR:
+        raise AssertionError(f"mesh shard_data: recall below {RECALL_FLOOR}")
+    del index, q_dev
+    torch.cuda.empty_cache()
+
+
 PHASES = {"setup": phase_setup, "kernels": phase_kernels, "100k": phase_100k,
           "100k_cosine": phase_100k_cosine, "1m": phase_1m, "determinism": phase_determinism,
           "mnist784": phase_mnist784, "quantized": phase_quantized, "metrics": phase_metrics,
           "sparse_cosine": phase_sparse_cosine, "sparse_jaccard": phase_sparse_jaccard,
-          "sparse_ell": phase_sparse_ell}
+          "sparse_ell": phase_sparse_ell, "ot": phase_ot, "mesh": phase_mesh}
 
 
 def main():

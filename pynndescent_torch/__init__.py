@@ -1,9 +1,10 @@
 """pynndescent_torch — the PyTorch / CUDA port of pynndescent_tpu.
 
-The single-device surface of an NN-descent index: build, prepare, query,
-update, pickling and array checkpoints, the full metric registry, quantized
-search, wide sparse (CSR) input through the sketch or the padded-ELL route,
-the scikit-learn transformer and the graph utilities, with
+An NN-descent index: build, prepare, query, update, pickling and array
+checkpoints, the full metric registry (optimal transport included),
+quantized search, wide sparse (CSR) input through the sketch or the
+padded-ELL route, multi-device meshes (``devices=``, ``shard_data``), the
+scikit-learn transformer and the graph utilities, with
 the TPU kernels of the build rewritten as CUDA kernels for Hopper
 (``csrc/``). Importing the package imports torch, numpy and scipy, never jax
 or scikit-learn: ``PyNNDescentTransformer`` needs scikit-learn and is

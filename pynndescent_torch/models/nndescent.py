@@ -1,27 +1,30 @@
 """NNDescent index for PyTorch (counterpart of
-pynndescent_tpu/models/nndescent.py, the dense single-device surface).
+pynndescent_tpu/models/nndescent.py).
 
-The constructor takes the JAX package's arguments and covers its
-single-device surface: every registry metric and callables with
-``metric_kwds``, bit-packed ``uint8`` data, proxy metrics with their exact
-rerank, quantized search, ``init_graph`` warm starts, ``n_search_trees``
-candidates, sparse input (densified up to ``DENSIFY_MAX_FEATURES`` columns;
-wider CSR input routes as ``sketch.resolve`` decides: through a dense sketch
-with the exact rerank from packed ELL rows, or through the exact padded-ELL
-path), ``update()``, ``compress_index()``, pickling and ``save`` / ``load``.
-What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item: the exact optimal-transport metrics (A4); ``devices=`` meshes (A5).
+The constructor takes the JAX package's arguments and covers its surface:
+every registry metric and callables with ``metric_kwds``, bit-packed
+``uint8`` data, proxy metrics with their exact rerank, the optimal-transport
+names (``kantorovich``, ``wasserstein``, ``sinkhorn``: built and searched on
+their proxy, every returned distance exact), quantized search,
+``init_graph`` warm starts, ``n_search_trees`` candidates, sparse input
+(densified up to ``DENSIFY_MAX_FEATURES`` columns; wider CSR input routes as
+``sketch.resolve`` decides: through a dense sketch with the exact rerank from
+packed ELL rows, or through the exact padded-ELL path), ``devices=`` meshes
+with ``shard_data`` (parallel/mesh.py), ``update()``, ``compress_index()``,
+pickling and ``save`` / ``load``.
 
 The device is explicit: ``device="cuda"`` is the default and the
 constructor raises when CUDA is unavailable; only ``device="cpu"`` runs on
-the CPU (where the kernels run their plain PyTorch versions). The
-hand-written kernels engage for float32 data under a gram-form metric with
-no keywords (ops/nndescent.py); every other build takes the gather init.
+the CPU (where the kernels run their plain PyTorch versions). A mesh index
+lives on the mesh's first device. The hand-written kernels engage for
+float32 data under a gram-form metric with no keywords on a single-device
+build (ops/nndescent.py); every other build takes the gather init.
 """
 
 from __future__ import annotations
 
 import datetime
+import functools
 import json
 import warnings
 
@@ -31,6 +34,7 @@ import torch
 from pynndescent_torch.models import search as search_ops
 from pynndescent_torch.ops import distances as dst
 from pynndescent_torch.ops import nndescent as nnd_ops
+from pynndescent_torch.ops import optimal_transport as ot
 from pynndescent_torch.ops import prune as prune_ops
 from pynndescent_torch.ops import quantization as qz
 from pynndescent_torch.ops import rp_trees
@@ -39,6 +43,7 @@ from pynndescent_torch.ops import sparse as sparse_ops
 from pynndescent_torch.ops import sparse_ell
 from pynndescent_torch.ops.neighbors import (MAX_ID, block_starts, make_neighbor_state,
                                               merge_candidates, state_from_graph)
+from pynndescent_torch.parallel import mesh as mesh_mod
 from pynndescent_torch.utils import rng
 from pynndescent_torch.utils.profiling import PhaseTimer
 
@@ -53,7 +58,13 @@ _ANGULAR_METRICS = (
     "bit_hamming",
     "bit_jaccard",
 )
-_A4 = "is not ported to the PyTorch package yet (ROADMAP A4)"
+# the optimal-transport names build and search on a proxy and rerank by the
+# exact metric (JAX :54-58)
+_OT_EXACT_ROUTES = {
+    "kantorovich": "proxy_kantorovich",
+    "wasserstein": "proxy_kantorovich",
+    "sinkhorn": "proxy_sinkhorn",
+}
 # hash seed of every sketch (the JAX package's constant)
 _SKETCH_SEED = 0x5EED
 _tf32_warned = False
@@ -70,6 +81,42 @@ def _resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device '{device}'")
     return dev
+
+
+def _resolve_mesh(devices, device: torch.device):
+    """The ``devices`` argument as a ``Mesh``, or None for one device (JAX
+    :73): None; an int, the first N cards of a CUDA index (``ValueError``
+    when there are fewer) or N shards of the CPU for a CPU index; a sequence
+    of devices (which may repeat one); or a ``Mesh``."""
+    if devices is None:
+        return None
+    if isinstance(devices, mesh_mod.Mesh):
+        return devices if devices.size > 1 else None
+    if isinstance(devices, (int, np.integer)):
+        if devices <= 1:
+            return None
+        return mesh_mod.make_mesh(int(devices), device=device.type)
+    devs = list(devices)
+    if len(devs) <= 1:
+        return None
+    return mesh_mod.Mesh(devs, ("data",))
+
+
+def _restore_mesh(spec, device: torch.device):
+    """The mesh of a pickled or saved index (a ``Mesh.spec()`` dict, or the
+    JAX package's device count) where its devices exist here and are of the
+    index's device type; else None, and the index serves from one device
+    (JAX :1560-1567)."""
+    if spec is None:
+        return None
+    try:
+        mesh = (mesh_mod.Mesh.from_spec(spec) if isinstance(spec, dict)
+                else _resolve_mesh(spec, device))
+    except ValueError:
+        return None
+    if mesh is None or mesh.lead.type != device.type or not mesh.present():
+        return None
+    return mesh
 
 
 def _warn_tf32_once():
@@ -190,11 +237,15 @@ class NNDescent:
         device="cuda",
     ):
         self.device = _resolve_device(device)
+        # multi-device builds: the neighbor state row-sharded over the mesh
+        # (shard_data=True: X as well), queries sharded over it
+        self.devices = devices
+        self.shard_data = bool(shard_data)
+        self._mesh = _resolve_mesh(devices, self.device)
+        if self._mesh is not None:
+            self.device = _resolve_device(self._mesh.lead)
         if self.device.type == "cuda":
             _warn_tf32_once()
-        if devices not in (None, 1) or shard_data:
-            raise NotImplementedError(
-                "multi-device builds are not ported to the PyTorch package yet (ROADMAP A5)")
 
         self.n_neighbors = n_neighbors
         self.metric = metric
@@ -229,7 +280,7 @@ class NNDescent:
         # packed or sketched), uint8 for bit-packed metrics
         self._input_is_sparse = sparse_ops.is_sparse(data)
         self._ell = self._sketch = self._ell_store = self._ell_store_dev = None
-        self._graph_exact = None
+        self._graph_exact = self._graph_exact_ot = None
         if self._input_is_sparse:
             csr = data.tocsr()
             if csr.shape[1] > sparse_ops.DENSIFY_MAX_FEATURES:
@@ -293,6 +344,9 @@ class NNDescent:
                     forest = self._build_forest(n_trees)
             init_state = None
             if init_graph is not None:
+                if self._mesh is not None:
+                    raise NotImplementedError(
+                        "init_graph warm starts are not supported with devices=/mesh builds yet")
                 init_graph = np.asarray(init_graph, np.int32)
                 if init_graph.shape[0] != n:
                     raise ValueError("Init graph size does not match dataset size")
@@ -304,6 +358,13 @@ class NNDescent:
                 init_state = state_from_graph(gi, gd, k=self._build_k)
             if verbose:
                 print(_ts(), "NN descent for", n_iters, "iterations")
+            if self._mesh is not None:
+                dropped = [name for name, val, default in (
+                    ("build_dtype", build_dtype, None), ("locality", locality, "auto"),
+                    ("block_rows", block_rows, nnd_ops.DEFAULT_BLOCK_ROWS)) if val != default]
+                if dropped:
+                    warnings.warn(f"devices=/mesh builds do not support {dropped} yet; "
+                                  "the options are ignored")
             with self._timer.phase("descent"):
                 graph = self._descend(forest, init_state)
         self._set_graph(graph)
@@ -360,6 +421,15 @@ class NNDescent:
         an update, as in the JAX package) joins on a bfloat16 copy of the
         sketch (+-1 signs are exact in it) with the candidate pool clamped to
         12, the JAX package's clamp, kept as it is (ROADMAP C)."""
+        if self._mesh is not None:
+            # the JAX mesh build: the gather init, no locality phases, no
+            # bfloat16 join, the sketch's candidate clamp not applied
+            return mesh_mod.sharded_nn_descent(
+                self._X, self._build_k, self._root_seed, self._mesh,
+                metric=self._internal_metric, metric_kwds=self._internal_metric_kwds,
+                n_iters=self.n_iters, delta=self.delta, max_candidates=self.max_candidates,
+                forest=forest, leaf_cap=min(self.leaf_size, 64), shard_data=self.shard_data,
+                init_state=init_state, verbose=self.verbose)
         sketch_build = build and self._sketch is not None
         mc = self.max_candidates
         if sketch_build and mc:
@@ -380,6 +450,7 @@ class NNDescent:
         self._neighbor_graph = graph
         self._graph_np = None
         self._graph_exact = None
+        self._graph_exact_ot = None
         self._warned_incomplete = False
         self._search_graph = None
         self._search_tree = None
@@ -419,8 +490,15 @@ class NNDescent:
             self._internal_metric_kwds = {}
         if callable(metric):
             self._internal_metric = metric
-        elif metric in dst.OT_METRICS or metric in dst.OT_PROXY_METRICS:
-            raise NotImplementedError(f"metric '{metric}' (exact optimal transport) {_A4}")
+        elif metric in _OT_EXACT_ROUTES:
+            # build and search on the proxy, which takes no keywords (the cost
+            # and the regularization belong to the exact metric); rerank by
+            # the exact metric
+            entry = dst.proxy_distances[_OT_EXACT_ROUTES[metric]]
+            self._internal_metric = entry["proxy_dist"]
+            self._true_metric = entry["true_dist"]
+            self._is_proxy = True
+            self._internal_metric_kwds = {}
         elif metric in dst.proxy_distances:
             entry = dst.proxy_distances[metric]
             self._internal_metric = entry["proxy_dist"]
@@ -491,6 +569,38 @@ class NNDescent:
             self._graph_exact = tuple(torch.cat(p).cpu().numpy() for p in zip(*parts))
         return self._graph_exact
 
+    def _ot_distances(self, queries, cand_idx):
+        """Exact optimal-transport distances (float64 numpy, +inf at -1) from
+        each query row to its candidate ids: ``kantorovich`` pair by pair on
+        the host, as the JAX package computes it; ``sinkhorn`` in one batch on
+        the index's device (the JAX package loops over pairs on the host; the
+        same numbers up to the order of fp32 sums)."""
+        cand = cand_idx.cpu().numpy() if isinstance(cand_idx, torch.Tensor) else np.asarray(cand_idx)
+        rows, cols = np.nonzero(cand >= 0)
+        out = np.full(cand.shape, np.inf, np.float64)
+        if self._true_metric is ot.kantorovich:
+            q = queries.cpu().numpy() if isinstance(queries, torch.Tensor) else np.asarray(queries)
+            vals = ot.kantorovich(q[rows], self._raw_data[cand[rows, cols]], **self.metric_kwds)
+        else:
+            q = torch.as_tensor(queries, device=self.device)
+            r = torch.from_numpy(rows).to(self.device)
+            c = torch.from_numpy(cand[rows, cols].astype(np.int64)).to(self.device)
+            vals = ot.sinkhorn_distance_batch(q[r], self._X[c], **self.metric_kwds).cpu().numpy()
+        out[rows, cols] = vals
+        return out
+
+    def _exact_ot_graph(self):
+        """The optimal-transport names' graph as the API shows it (JAX
+        :614): the internal graph ranks by the proxy; each edge is recomputed
+        by the exact metric and each row reordered; computed once."""
+        if self._graph_exact_ot is None:
+            idx = self._graph_host()[0]
+            d = self._ot_distances(self._X, idx)
+            order = np.argsort(d, axis=1)
+            rows = np.arange(idx.shape[0])[:, None]
+            self._graph_exact_ot = (idx[rows, order], d[rows, order].astype(np.float32))
+        return self._graph_exact_ot
+
     def _maybe_warn_incomplete(self, flag=None):
         """Warn once when some row has fewer than n_neighbors entries."""
         if self._warned_incomplete:
@@ -522,6 +632,8 @@ class NNDescent:
         self._maybe_warn_incomplete()
         if self._sketch is not None:
             return self._exact_graph()
+        if isinstance(self.metric, str) and self.metric in _OT_EXACT_ROUTES:
+            return self._exact_ot_graph()
         idx, d = self._graph_host()
         if self._distance_correction is not None:
             d = self._distance_correction(d)
@@ -530,9 +642,9 @@ class NNDescent:
     @property
     def phase_times_(self):
         """Accumulated wall seconds per phase (forest, descent,
-        prepare/diversify, prepare/search_tree, query, and update/forest,
-        update/descent of ``update()``); filled only when the index was built
-        with ``profile`` truthy."""
+        prepare/diversify, prepare/search_tree, query with its exact
+        query/rerank, and update/forest, update/descent of ``update()``);
+        filled only when the index was built with ``profile`` truthy."""
         return dict(self._timer.times)
 
     # ------------------------------------------------------------------
@@ -572,6 +684,7 @@ class NNDescent:
         index, the codes."""
         if self._search_graph is not None:
             return
+        self.__dict__.pop("_mesh_replicas", None)
         idx, dist = self._neighbor_graph
         if self.verbose:
             print(_ts(), "Building and diversifying the search graph")
@@ -660,16 +773,29 @@ class NNDescent:
     def _load_quantized(self):
         """The codes on the device and the search-distance closure, from the
         stored mode / codebook (also after unpickling)."""
+        self._quantized_rowwise = self._quantized_rowwise_on(self.device)
+        self._quantized_codes_dev = torch.from_numpy(self._quantized["codes"]).to(self.device)
+
+    def _quantized_rowwise_on(self, device):
+        """The quantized search distance with its codebook on ``device``."""
         mode = self._quantized["mode"]
         if mode == "binary":
-            fn = qz.make_binary_rowwise(self.metric)
-        elif mode == "uint8":
-            fn = qz.make_uint8_rowwise(self.metric, self._quantized["codebook"], self.device)
-        else:
-            fn = qz.make_uint4_rowwise(self.metric, self._quantized["codebook"], self.dim,
-                                       self.device)
-        self._quantized_rowwise = fn
-        self._quantized_codes_dev = torch.from_numpy(self._quantized["codes"]).to(self.device)
+            return qz.make_binary_rowwise(self.metric)
+        if mode == "uint8":
+            return qz.make_uint8_rowwise(self.metric, self._quantized["codebook"], device)
+        return qz.make_uint4_rowwise(self.metric, self._quantized["codebook"], self.dim, device)
+
+    def _mesh_replica(self, cand_X, rowwise_on, device):
+        """``parallel.mesh.sharded_search``'s view of the index on one of the
+        mesh's devices: the searched rows, the search graph and the tree,
+        copied there once and kept until the search structures are rebuilt,
+        and the search distance made there by ``rowwise_on(device)``."""
+        cache = self.__dict__.setdefault("_mesh_replicas", {})
+        key = (device, cand_X.dtype, tuple(cand_X.shape))
+        if key not in cache:
+            cache[key] = (cand_X.to(device), self._search_graph.to(device),
+                          mesh_mod._tree_on(self._tree_dev, device))
+        return (*cache[key], rowwise_on(device))
 
     # ------------------------------------------------------------------
     # query
@@ -756,6 +882,7 @@ class NNDescent:
             # the beam runs on codes, the tree descent on the float queries
             cand_X = self._quantized_codes_dev
             dist_rowwise = self._quantized_rowwise
+            rowwise_on = self._quantized_rowwise_on
             tree_queries = q
             if self._quantized["mode"] == "binary":
                 search_q = _pack_sign_bits(q)
@@ -767,16 +894,27 @@ class NNDescent:
             cand_X = self._X_search if use_bf16 else self._X
             dist_rowwise = nnd_ops._resolve_rowwise_metric(
                 self._internal_metric, self._internal_metric_kwds, cast_candidates_f32=use_bf16)
+        if self._quantized is None:  # keywords move to the inputs' device at each call
+            def rowwise_on(device):
+                return dist_rowwise
 
         beam = self.beam_width or max(2 * search_k, 48)
-        idx, d = search_ops.search(
+        # a mesh shards the query batch over its devices (parallel/mesh.py),
+        # each searching the index's copy kept on it
+        search_fn = search_ops.search
+        if self._mesh is not None:
+            search_fn = functools.partial(
+                mesh_mod.sharded_search, mesh=self._mesh,
+                replica=functools.partial(self._mesh_replica, cand_X, rowwise_on))
+        idx, d = search_fn(
             search_q, cand_X, self._search_graph, self._tree_dev,
             rng.derive_seed(self._root_seed, rng.ROLE_SEARCH, 2), k=search_k, epsilon=epsilon,
             min_distance=min_distance, beam_width=beam, dist_rowwise=dist_rowwise,
             expansions_per_step=int(expansions_per_step), tree_queries=tree_queries, ell=ell,
         )
         if is_proxy or use_bf16:
-            idx, d = self._rerank(q, idx, k, q_ell)
+            with self._timer.phase("query/rerank"):
+                idx, d = self._rerank(q, idx, k, q_ell)
             return idx.cpu().numpy(), d.cpu().numpy()
         idx, d = idx[:, :k].cpu().numpy(), d[:, :k].cpu().numpy()
         if self._distance_correction is not None:
@@ -798,6 +936,13 @@ class NNDescent:
         if true_metric is None:
             true_metric = (dst.named_distances[self.metric] if isinstance(self.metric, str)
                            else self.metric)
+        if true_metric in (ot.kantorovich, ot.sinkhorn):
+            d = self._ot_distances(queries, cand_idx)
+            order = np.argsort(d, axis=1)[:, :k]
+            rows = np.arange(d.shape[0])[:, None]
+            cand = cand_idx.cpu().numpy()
+            return (torch.from_numpy(cand[rows, order]),
+                    torch.from_numpy(d[rows, order].astype(np.float32)))
         fn = nnd_ops._resolve_rowwise_metric(true_metric, self.metric_kwds)
         return _rerank_rows(fn, queries, cand_idx, self._X, k)
 
@@ -827,6 +972,10 @@ class NNDescent:
         forests, and the same sequence of calls gives the same index."""
         if self._neighbor_graph is None:
             raise ValueError("Cannot update a compressed index")
+        if self._mesh is not None and self.shard_data:
+            raise NotImplementedError(
+                "update() is not supported with shard_data=True builds yet; rebuild the index "
+                "instead")
         if self._ell is not None or self._sketch is not None:
             xs_fresh = self._append_sparse(xs_fresh, xs_updated)
         # check and coerce both inputs before anything changes; the index's
@@ -922,8 +1071,11 @@ class NNDescent:
         self.prepare()
         state = self.__dict__.copy()
         for key in ("_timer", "_tree_dev", "_quantized_rowwise", "_quantized_codes_dev",
-                    "_graph_np", "_ell_store_dev", "_ell_metric_cache"):
+                    "_graph_np", "_ell_store_dev", "_ell_metric_cache", "_mesh",
+                    "_mesh_replicas"):
             state.pop(key, None)
+        # the mesh goes out as plain values and is restored where its devices exist
+        state["devices"] = None if self._mesh is None else self._mesh.spec()
         if self._ell is not None:  # closures over the packed width, rebuilt on load
             state["_internal_metric"] = state["_distance_correction"] = None
         state["device"] = str(self.device)
@@ -939,6 +1091,12 @@ class NNDescent:
         self.__dict__.update(state)
         self._ell_store_dev = None
         self.device = _resolve_device(state["device"])
+        self.devices = state.get("devices")
+        self.shard_data = bool(state.get("shard_data", False))
+        self._graph_exact_ot = state.get("_graph_exact_ot")
+        self._mesh = _restore_mesh(self.devices, self.device)
+        if self._mesh is not None:
+            self.device = _resolve_device(self._mesh.lead)
         self._timer = PhaseTimer(getattr(self, "profile", False), self.device)
         self._X = torch.from_numpy(np.ascontiguousarray(self._raw_data)).to(self.device)
         self._graph_np = state["_neighbor_graph"]

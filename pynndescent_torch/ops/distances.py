@@ -7,10 +7,10 @@ zero vectors and degenerate input branch by branch. The same three
 registries with the same keys: ``named_distances``,
 ``fast_distance_alternatives`` (order-preserving surrogate plus the
 correction of final distances) and ``proxy_distances`` (cheap proxy plus the
-true metric for the rerank). The exact optimal-transport names
-(``kantorovich``, ``wasserstein``, ``sinkhorn`` and the proxies that rerank
-by them) are not ported yet: asking for one raises ``NotImplementedError``
-(ROADMAP A4).
+true metric for the rerank). The optimal-transport names (``kantorovich``,
+``wasserstein``, ``sinkhorn``) come from ``ops/optimal_transport.py``: the
+exact Kantorovich distance is solved on the host, so the index builds and
+searches on their proxies and reranks by them.
 
 Three forms:
 
@@ -38,6 +38,8 @@ import math
 import numpy as np
 import torch
 
+from pynndescent_torch.ops import optimal_transport as ot
+
 FLOAT32_EPS = float(np.finfo(np.float32).eps)
 FLOAT32_MAX = float(np.finfo(np.float32).max)
 
@@ -55,24 +57,15 @@ GRAM_METRICS = (
     "alternative_inner_product",
 )
 
-# exact optimal transport and the proxies that rerank by it (ROADMAP A4)
-OT_METRICS = ("kantorovich", "wasserstein", "sinkhorn")
-OT_PROXY_METRICS = ("proxy_kantorovich", "proxy_wasserstein", "proxy_sinkhorn")
-
 # elements of one broadcast [rows, m, d] temporary (256 MiB of fp32)
 _BROADCAST_TILE_ELEMS = 1 << 26
 
 
 def check_metric(metric):
-    """Raise for a metric this package cannot resolve: ``NotImplementedError``
-    for the optimal-transport names, ``ValueError`` for an unknown name.
+    """Raise ``ValueError`` for a name that is not in the registry.
     Callables pass."""
     if callable(metric):
         return
-    if metric in OT_METRICS:
-        raise NotImplementedError(
-            f"metric '{metric}' (exact optimal transport) is not ported to the PyTorch "
-            "package yet (ROADMAP A4)")
     if metric not in named_distances:
         raise ValueError(f"Metric '{metric}' not recognized")
 
@@ -642,7 +635,7 @@ def bit_jaccard(x, y):
 
 
 # ---------------------------------------------------------------------------
-# Registries (same keys as the JAX package, less exact optimal transport)
+# Registries (same keys as the JAX package)
 # ---------------------------------------------------------------------------
 
 named_distances = {
@@ -714,6 +707,11 @@ named_distances = {
     "proxy_jensen_shannon": proxy_jensen_shannon,
     "proxy_symmetric_kl": proxy_symmetric_kl,
     "proxy_sinkhorn": proxy_sinkhorn,
+    # optimal transport (ops/optimal_transport.py): exact on the host, Sinkhorn
+    # batched on the inputs' device
+    "kantorovich": ot.kantorovich,
+    "wasserstein": ot.kantorovich,
+    "sinkhorn": ot.sinkhorn,
 }
 
 # Order-preserving cheap surrogates + the correction of final distances.
@@ -752,8 +750,7 @@ fast_distance_alternatives = {
     },
 }
 
-# Cheap proxy + exact rerank. The entries whose true side is exact optimal
-# transport (OT_PROXY_METRICS) come with that module (ROADMAP A4).
+# Cheap proxy + exact rerank.
 proxy_distances = {
     "proxy_inner_product": {"proxy_dist": proxy_inner_product, "true_dist": inner_product},
     "proxy_wasserstein_1d": {"proxy_dist": proxy_wasserstein_1d, "true_dist": wasserstein_1d},
@@ -776,6 +773,9 @@ proxy_distances = {
     },
     "proxy_symmetric_kl": {"proxy_dist": proxy_symmetric_kl, "true_dist": symmetric_kl_divergence},
     "proxy_symmetric-kl": {"proxy_dist": proxy_symmetric_kl, "true_dist": symmetric_kl_divergence},
+    "proxy_kantorovich": {"proxy_dist": proxy_kantorovich, "true_dist": ot.kantorovich},
+    "proxy_wasserstein": {"proxy_dist": proxy_kantorovich, "true_dist": ot.kantorovich},
+    "proxy_sinkhorn": {"proxy_dist": proxy_sinkhorn, "true_dist": ot.sinkhorn},
 }
 
 

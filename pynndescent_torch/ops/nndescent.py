@@ -19,7 +19,7 @@ d <= 128, VMEM sweep limits) and the quiet kernel-to-XLA fallbacks are gone.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -75,6 +75,52 @@ def _sweep_ok(metric, metric_kwds, X) -> bool:
 
 def _long(t):
     return t.to(torch.int64)
+
+
+def _to(t, dev):
+    return t.to(dev, non_blocking=True)
+
+
+class RowPart(NamedTuple):
+    """Rows ``[lo, hi)`` of a neighbor state: ``state`` holds them from its
+    row 0, on the device of its tensors, and ``rows(ids)`` gives the data
+    rows of global ids (an int64 tensor on that device) there. A one-device
+    build has one part; a mesh build one a shard (parallel/mesh.py), reading
+    its copy of X or, with X row-sharded, the ring."""
+
+    lo: int
+    hi: int
+    state: NeighborState
+    rows: Callable
+
+
+def _placed(state: NeighborState, lo: int, hi: int, dev) -> NeighborState:
+    """Rows ``[lo, hi)`` of ``state`` on ``dev``: a view where the state
+    lies there already, else a copy (``_write_back`` returns it)."""
+    if state.idx.device == dev:
+        return NeighborState(*(a[lo:hi] for a in state))
+    return NeighborState(*(_to(a[lo:hi], dev) for a in state))
+
+
+def _write_back(state: NeighborState, parts) -> None:
+    """Copy the parts (``(lo, hi, rows of the state)`` first) that
+    ``_placed`` made on other devices back into ``state``."""
+    for lo, hi, sub, *_ in parts:
+        if sub.idx.device != state.idx.device:
+            for a, b in zip(state, sub):
+                a[lo:hi].copy_(b)
+
+
+def _row_shards(X, devices):
+    """Even row ranges of X in device order, ``[(lo, hi, X on the device)]``
+    (the last ranges shorter, or empty), with one copy of X a distinct
+    device."""
+    n = X.shape[0]
+    s = -(-n // len(devices))
+    copies = {}
+    for dev in devices:
+        copies.setdefault(dev, _to(X, dev))
+    return [(min(i * s, n), min((i + 1) * s, n), copies[dev]) for i, dev in enumerate(devices)]
 
 
 # ---------------------------------------------------------------------------
@@ -241,59 +287,87 @@ def _join_block(row_ids, hop_new, hop_old, tbl_nn, tbl_no, tbl_on, X_rows, dist_
 
 def _descent_iteration(state: NeighborState, X, seed: int, *, max_candidates: int, dist_rowwise,
                        block_rows: int, hop2_new_samples: int, hop2_old_samples: int,
-                       window_rows: int | None = None):
+                       window_rows: int | None = None, shards=None):
     """One join iteration over all row blocks; updates ``state`` in place
-    and returns (state, number of changed slots as a 0-d tensor)."""
+    and returns (state, number of changed slots as a 0-d tensor on the
+    state's device).
+
+    ``shards`` spreads the join over devices as ``[(lo, hi, X on a
+    device)]`` row ranges (a mesh build): the candidates are sampled once for
+    all rows on the state's device, each shard joins and merges its rows on
+    its own device (in place where that is the state's, else on a copy
+    written back), and the result is the one-device iteration's. Shards are
+    enqueued one after another with no host sync, so distinct cards overlap.
+    The locality windows need one shard."""
     n = state.idx.shape[0]
-    gen = rng.generator(seed, state.idx.device)
+    lead = state.idx.device
+    gen = rng.generator(seed, lead)
     sample = build_candidates(state, gen, max_candidates, window_rows)
     state = NeighborState(state.idx, state.dist, sample.flag)
 
     t_nn = max(1, (hop2_new_samples + 1) // 2)
     t_no = max(0, hop2_new_samples - t_nn)
-    tbl_nn = sample.hop_new[:, :t_nn]
-    tbl_no = sample.hop_old[:, :t_no]
-    tbl_on = sample.hop_new[:, :hop2_old_samples]
+    tables = (sample.hop_new[:, :t_nn], sample.hop_old[:, :t_no],
+              sample.hop_new[:, :hop2_old_samples])
 
     n_x = X.shape[0]
     windowed = window_rows is not None and window_rows < n_x
+    if shards is None:
+        shards = [(0, n, X)]
+    elif windowed:
+        raise ValueError("the locality windows join on one device")
     b = min(block_rows, n)
     if windowed:
         # a row block must fit inside its locality window
         b = min(b, window_rows)
-    changes = torch.zeros((), dtype=torch.int64, device=state.idx.device)
-    for start in block_starts(n, b):
-        rows = torch.arange(start, start + b, dtype=torch.int32, device=state.idx.device)
-        if windowed:
-            ws = min(max((start // window_rows) * window_rows, 0), n_x - window_rows)
-            ws = max(ws, start + b - window_rows)
-            X_rows = X[ws:ws + window_rows]
-        else:
-            ws, X_rows = 0, X
-        pool, d = _join_block(
-            rows, sample.hop_new[start:start + b], sample.hop_old[start:start + b],
-            tbl_nn, tbl_no, tbl_on, X_rows, dist_rowwise, n_real=n_x, win_start=ws,
-        )
-        changes = changes + merge_rows_(state, start, pool, d)
-    return state, changes
+    placed, changes, tables_on = [], [], {}
+    for lo, hi, X_dev in shards:
+        if lo >= hi:
+            continue
+        dev = X_dev.device
+        if dev not in tables_on:
+            tables_on[dev] = tuple(_to(tb, dev) for tb in tables)
+        sub = _placed(state, lo, hi, dev)
+        hop_new, hop_old = _to(sample.hop_new[lo:hi], dev), _to(sample.hop_old[lo:hi], dev)
+        bs = min(b, hi - lo)
+        ch = torch.zeros((), dtype=torch.int64, device=dev)
+        for start in block_starts(hi - lo, bs):
+            rows = torch.arange(lo + start, lo + start + bs, dtype=torch.int32, device=dev)
+            if windowed:
+                ws = min(max((start // window_rows) * window_rows, 0), n_x - window_rows)
+                ws = max(ws, start + bs - window_rows)
+                X_rows = X_dev[ws:ws + window_rows]
+            else:
+                ws, X_rows = 0, X_dev
+            pool, d = _join_block(
+                rows, hop_new[start:start + bs], hop_old[start:start + bs], *tables_on[dev],
+                X_rows, dist_rowwise, n_real=n_x, win_start=ws,
+            )
+            ch = ch + merge_rows_(sub, start, pool, d)
+        placed.append((lo, hi, sub))
+        changes.append(_to(ch, lead))
+    _write_back(state, placed)
+    return state, sum(changes[1:], changes[0])
 
 
 def descent_loop(state, X, seed: int, stop_count: float, *, n_iters: int, max_candidates: int,
                  dist_rowwise, block_rows: int, hop2_new_samples: int, hop2_old_samples: int,
-                 window_rows: int | None = None, verbose: bool = False):
+                 window_rows: int | None = None, shards=None, verbose: bool = False):
     """Join iterations until ``n_iters`` or until an iteration changes at
     most ``stop_count`` slots (the delta exit, JAX :1145). Each test reads
-    the change count: one host sync per iteration."""
+    the change count: one host sync per iteration. ``shards`` as in
+    ``_descent_iteration``."""
     for it in range(n_iters):
         state, changes = _descent_iteration(
             state, X, rng.derive_seed(seed, rng.ROLE_DESCENT_ITER, it),
             max_candidates=max_candidates, dist_rowwise=dist_rowwise, block_rows=block_rows,
             hop2_new_samples=hop2_new_samples, hop2_old_samples=hop2_old_samples,
-            window_rows=window_rows,
+            window_rows=window_rows, shards=shards,
         )
         changes = int(changes)
         if verbose:
-            print(f"\t{it + 1}  /  {n_iters}  (changes: {changes})")
+            print(f"\t{it + 1}  /  {n_iters}  (changes: {changes}"
+                  + (f", {len(shards)} shards)" if shards else ")"))
         if changes <= stop_count:
             break
     return state
@@ -304,22 +378,28 @@ def descent_loop(state, X, seed: int, stop_count: float, *, n_iters: int, max_ca
 # ---------------------------------------------------------------------------
 
 
-def init_random(state: NeighborState, X, seed: int, n_extra: int, dist_rowwise,
-                block_rows: int = 65536):
-    """Random fill (JAX :486): every row merges itself at distance 0 and
-    ``n_extra`` uniform random candidates."""
-    n = X.shape[0]
-    dev = X.device
+def init_random(parts, seed: int, n_extra: int, dist_rowwise, block_rows: int = 65536):
+    """Random fill (JAX :486) of the ``RowPart``s of a state: every row
+    merges itself at distance 0 and ``n_extra`` uniform random candidates.
+    The first part's device draws every block's candidates, and each part
+    merges the rows it holds on its own device."""
+    n = parts[-1].hi
+    lead = parts[0].state.idx.device
     b = min(block_rows, n)
-    gen = rng.generator(seed, dev)
+    gen = rng.generator(seed, lead)
     for s0 in block_starts(n, b):
-        rows = torch.arange(s0, s0 + b, dtype=torch.int32, device=dev)
-        cand = torch.randint(0, n, (b, n_extra), generator=gen, device=dev, dtype=torch.int32)
+        rows = torch.arange(s0, s0 + b, dtype=torch.int32, device=lead)
+        cand = torch.randint(0, n, (b, n_extra), generator=gen, device=lead, dtype=torch.int32)
         cand = torch.cat([rows[:, None], cand], dim=-1)
-        d = dist_rowwise(X[_long(rows)], X[_long(cand)])
-        d = torch.where(cand == rows[:, None], torch.zeros_like(d), d)
-        merge_rows_(state, s0, cand, d)
-    return state
+        for p in parts:
+            lo, hi = max(s0, p.lo), min(s0 + b, p.hi)
+            if lo >= hi:
+                continue
+            dev = p.state.idx.device
+            r, c = _to(rows[lo - s0:hi - s0], dev), _to(cand[lo - s0:hi - s0], dev)
+            d = dist_rowwise(p.rows(_long(r)), p.rows(_long(c)))
+            d = torch.where(c == r[:, None], torch.zeros_like(d), d)
+            merge_rows_(p.state, lo - p.lo, c, d)
 
 
 def _inverse_permutation(order):
@@ -328,20 +408,24 @@ def _inverse_permutation(order):
     return inv
 
 
-def init_from_forest(state: NeighborState, X, orders, starts, sizes, dist_rowwise, leaf_cap: int,
+def init_from_forest(part: RowPart, orders, starts, sizes, dist_rowwise, leaf_cap: int,
                      block_rows: int = 4096):
-    """Gather-path forest init (JAX :518): per block of point ids, every
+    """Gather-path forest init (JAX :518) of one ``RowPart``'s points, with
+    the forest's tables on the part's device: per block of point ids, every
     tree's leaf window becomes one [b, T * leaf_cap] candidate tile. Used
-    where the leaf kernel does not apply (bfloat16 join data)."""
-    n = X.shape[0]
+    where the leaf kernel does not apply (bfloat16 join data, mesh builds)."""
+    n = orders.shape[1]
+    m, row0, state = part.hi - part.lo, part.lo, part.state
+    if m <= 0:
+        return
     T = orders.shape[0]
-    dev = X.device
-    b = min(block_rows, n)
+    dev = state.idx.device
+    b = min(block_rows, m)
     offsets = torch.arange(leaf_cap, dtype=torch.int64, device=dev)
     inv = torch.stack([_inverse_permutation(orders[t]) for t in range(T)])
     trow = torch.arange(T, device=dev)[:, None]
-    for s0 in block_starts(n, b):
-        pos = _long(inv[:, s0:s0 + b])  # [T, b]
+    for s0 in block_starts(m, b):
+        pos = _long(inv[:, row0 + s0:row0 + s0 + b])  # [T, b]
         lstart = _long(starts[trow, pos])
         lsize = _long(sizes[trow, pos])
         win = torch.clamp(lstart[:, :, None] + offsets, max=n - 1)
@@ -349,10 +433,9 @@ def init_from_forest(state: NeighborState, X, orders, starts, sizes, dist_rowwis
         cand = torch.where(offsets < torch.clamp(lsize, max=leaf_cap)[:, :, None], cand,
                            torch.full_like(cand, -1))
         cand = cand.permute(1, 0, 2).reshape(b, T * leaf_cap)
-        pts = torch.arange(s0, s0 + b, device=dev)
-        d = dist_rowwise(X[pts], X[_long(torch.clamp(cand, min=0))])
+        pts = torch.arange(row0 + s0, row0 + s0 + b, device=dev)
+        d = dist_rowwise(part.rows(pts), part.rows(_long(torch.clamp(cand, min=0))))
         merge_rows_(state, s0, cand, torch.where(cand < 0, torch.full_like(d, _INF), d))
-    return state
 
 
 def kernel_forest_init(state: NeighborState, X, orders, starts, sizes, metric: str,
@@ -471,6 +554,27 @@ def _resolve_locality(locality, n_x, forest, n_iters):
 # ---------------------------------------------------------------------------
 
 
+def join_block_rows(n: int, d_bytes: int, max_candidates: int, hop2_new_samples: int,
+                    hop2_old_samples: int, block_rows: int = DEFAULT_BLOCK_ROWS) -> int:
+    """Rows of a join block: the [b, P, d] candidate tile (the build's peak
+    allocation) bounded to ~1.5 GB, ~0.75 GB at n > 2^19 (JAX :939-950)."""
+    t_nn_est = max(1, (hop2_new_samples + 1) // 2)
+    t_no_est = max(0, hop2_new_samples - t_nn_est)
+    pool_w = 2 * max_candidates * (1 + t_nn_est + t_no_est + hop2_old_samples)
+    tile_budget = 3 << 28 if n > (1 << 19) else (3 << 29)
+    return int(max(512, min(block_rows, tile_budget // max(pool_w * d_bytes, 1))))
+
+
+def random_block_rows(k: int, d_bytes: int) -> int:
+    """Rows of a random-fill block: its [b, k + 1, d] tile about 1 GB."""
+    return int(max(1024, min(65536, (1 << 30) // max((k + 1) * d_bytes, 1))))
+
+
+def forest_block_rows(n_trees: int, leaf_cap: int, d_bytes: int) -> int:
+    """Rows of a gather-init block: its [b, T * leaf_cap, d] tile about 4 GB."""
+    return int(max(256, min(8192, (1 << 32) // max(n_trees * leaf_cap * d_bytes, 1))))
+
+
 def nn_descent(
     X,
     n_neighbors: int,
@@ -489,6 +593,8 @@ def nn_descent(
     hop2_old_samples: int | None = None,
     compute_dtype=None,
     locality=None,
+    kernel_init: bool = True,
+    devices=None,
     verbose: bool = False,
 ):
     """Full NN-descent driver (JAX :877). Returns (indices i32[n, k],
@@ -498,10 +604,16 @@ def nn_descent(
     keywords. ``init_graph`` is a warm ``NeighborState`` (updated in place)
     instead of an empty one. ``forest`` is the init forest's ``(orders,
     starts, sizes)``; it goes through the ``leaf_allpairs`` kernel when
-    ``_kernel_init_ok`` holds, else through the gather init.
-    ``compute_dtype=torch.bfloat16`` joins on a bfloat16 copy of X and
-    reranks the final graph exactly in fp32. ``locality`` as in the JAX
-    package: None, "auto" (n >= 400k) or a dict."""
+    ``kernel_init`` is set and ``_kernel_init_ok`` holds, else through the
+    gather init. ``compute_dtype=torch.bfloat16`` joins on a bfloat16 copy of
+    X and reranks the final graph exactly in fp32. ``locality`` as in the JAX
+    package: None, "auto" (n >= 400k) or a dict.
+
+    ``devices`` spreads the build over devices, as even row ranges in order
+    (a mesh build, parallel/mesh.py): X is copied to each, the state stays on
+    X's device, each device runs the forest init, the random fill and the
+    join of its rows, and the result is the one-device build's. The locality
+    phases need one device."""
     n, d = X.shape
     k = n_neighbors
     dev = X.device
@@ -516,14 +628,9 @@ def nn_descent(
     dist_rowwise = _resolve_rowwise_metric(metric, metric_kwds)
     if leaf_cap is None:
         leaf_cap = 64
-    # bound the join's [b, P, d] candidate tile (the build's peak
-    # allocation) to ~1.5 GB, ~0.75 GB at n > 2^19 (JAX :939-950)
-    t_nn_est = max(1, (hop2_new_samples + 1) // 2)
-    t_no_est = max(0, hop2_new_samples - t_nn_est)
-    pool_w = 2 * max_candidates * (1 + t_nn_est + t_no_est + hop2_old_samples)
     d_bytes = d * X.element_size()
-    tile_budget = 3 << 28 if n > (1 << 19) else (3 << 29)
-    block_rows = int(max(512, min(block_rows, tile_budget // max(pool_w * d_bytes, 1))))
+    block_rows = join_block_rows(n, d_bytes, max_candidates, hop2_new_samples, hop2_old_samples,
+                                 block_rows)
 
     if compute_dtype is not None and X.dtype == torch.float32 and isinstance(metric, str):
         X_join = X.to(compute_dtype)
@@ -531,19 +638,26 @@ def nn_descent(
         X_join, compute_dtype = X, None
 
     state = init_graph if init_graph is not None else make_neighbor_state(n, k, device=dev)
+    shards = _row_shards(X_join, devices) if devices is not None and len(devices) > 1 else None
+    parts = [RowPart(lo, hi, _placed(state, lo, hi, Xd.device), Xd.__getitem__)
+             for lo, hi, Xd in shards or [(0, n, X_join)]]
 
     if forest is not None:
         orders, starts, sizes = forest
-        if _kernel_init_ok(metric, metric_kwds, X_join):
+        if kernel_init and _kernel_init_ok(metric, metric_kwds, X_join) and shards is None:
             state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=metric)
         else:
-            T = int(orders.shape[0])
-            init_block = int(max(256, min(8192, (1 << 32) // max(T * leaf_cap * d_bytes, 1))))
-            state = init_from_forest(state, X_join, orders, starts, sizes, dist_rowwise,
-                                     leaf_cap=leaf_cap, block_rows=init_block)
-    rand_block = int(max(1024, min(65536, (1 << 30) // max((k + 1) * d_bytes, 1))))
-    state = init_random(state, X_join, rng.derive_seed(seed, rng.ROLE_DESCENT_INIT), n_extra=k,
-                        dist_rowwise=dist_rowwise, block_rows=rand_block)
+            fb = forest_block_rows(int(orders.shape[0]), leaf_cap, d_bytes)
+            tables = {}
+            for p in parts:
+                pdev = p.state.idx.device
+                if pdev not in tables:
+                    tables[pdev] = [_to(f, pdev) for f in forest]
+                init_from_forest(p, *tables[pdev], dist_rowwise, leaf_cap=leaf_cap,
+                                 block_rows=fb)
+    init_random(parts, rng.derive_seed(seed, rng.ROLE_DESCENT_INIT), n_extra=k,
+                dist_rowwise=dist_rowwise, block_rows=random_block_rows(k, d_bytes))
+    _write_back(state, parts)
 
     stop_count = delta * k * n
     join_kw = dict(max_candidates=max_candidates, dist_rowwise=dist_rowwise,
@@ -551,6 +665,8 @@ def nn_descent(
                    hop2_old_samples=hop2_old_samples, verbose=verbose)
 
     loc = _resolve_locality(locality, n, forest, n_iters)
+    if loc is not None and shards is not None:
+        raise ValueError("the locality phases run on one device")
     if loc is not None:
         (W, phases, phase_iters, global_iters, refresh_flags, sweep_win, sweep_m,
          sweep_stagger) = loc
@@ -586,7 +702,7 @@ def nn_descent(
         if refresh_flags and n_iters > 0:
             state = NeighborState(state.idx, state.dist, state.idx >= 0)
 
-    state = descent_loop(state, X_join, seed, stop_count, n_iters=n_iters, **join_kw)
+    state = descent_loop(state, X_join, seed, stop_count, n_iters=n_iters, shards=shards, **join_kw)
     idx, dist = sort_by_distance(state.idx, state.dist)
     if compute_dtype is not None:
         rb = max(1024, min(65536, (1 << 29) // max(k * d * 4, 1)))

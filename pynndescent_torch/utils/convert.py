@@ -15,9 +15,9 @@ from pynndescent_torch.models.nndescent import NNDescent
 from pynndescent_torch.ops import rp_trees
 from pynndescent_torch.ops.neighbors import NeighborState
 
-# attributes that exist only in the JAX package's state
-_JAX_ONLY = ("_key", "_incomplete_dev", "_graph_exact_ot", "_visited", "devices", "shard_data",
-             "_quantized_codes_dev", "_mesh")
+# attributes that exist only in the JAX package's state (its mesh is carried
+# as ``devices``, the device count, and restored where that many exist)
+_JAX_ONLY = ("_key", "_incomplete_dev", "_visited", "_quantized_codes_dev", "_mesh")
 
 
 def _tensor(a, dtype, device):
@@ -83,6 +83,9 @@ def index_from_arrays(arrays: dict, device="cuda", search_dtype="bfloat16",
         _sketch=None,
         _ell_store=None,
         _graph_exact=None,
+        _graph_exact_ot=None,
+        devices=None,
+        shard_data=False,
     )
     return NNDescent._from_host_state(state, device)
 
@@ -92,7 +95,9 @@ def index_from_checkpoint(path, device="cuda") -> NNDescent:
     the JAX package's ``NNDescent.save()`` (flat arrays by attribute path
     plus the ``__meta__`` JSON), dense or wide sparse (padded-ELL rows, or
     a sketch with its packed store). The JAX-only entries (the threefry key,
-    the mesh) are dropped; the root seed is kept."""
+    the mesh object) are dropped; the root seed, ``devices`` (a mesh of that
+    many devices where they exist, else one device), ``shard_data`` and the
+    exact optimal-transport graph are kept."""
     state = NNDescent._read_checkpoint(path)
     for key in _JAX_ONLY:
         state.pop(key, None)

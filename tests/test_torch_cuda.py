@@ -344,3 +344,39 @@ def test_wide_sparse_routes_on_card_match_cpu(cuda_device, kw):
     assert abs(recall(gi, truth) - recall(on_cpu.neighbor_graph[0], truth)) <= 0.02
     np.testing.assert_allclose(gd, np.take_along_axis(D, gi, 1), rtol=1e-5, atol=5e-7)
     np.testing.assert_allclose(qd, np.take_along_axis(D[:50], qi, 1), rtol=1e-5, atol=5e-7)
+
+
+@pytest.mark.parametrize("route", ["uint8", "exact_ell"])
+def test_mesh_over_two_cards_searches_each_cards_copy(cuda_device, route):
+    """An index over ``devices=2`` of distinct cards: each card searches the
+    index's copy kept on it with a distance closure whose tensors (the uint8
+    codebook) lie there; the answers meet the one-card index's recall less
+    0.02 and every returned distance is exact."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from _torch_parity import WIDE, topic_corpus
+
+    if route == "uint8":
+        X = clustered(2000, 16, seed=4)
+        Q, kw = X[:200] + 0.05, dict(quantization="uint8")
+        truth = exact_knn(X, Q, 10)
+
+        def exact(qi, rows):
+            return np.linalg.norm(X[qi] - Q[rows][:, None], axis=-1)
+    else:
+        X = topic_corpus(800, WIDE, nnz=24, seed=2)
+        Q, kw = X[:200], dict(metric="cosine", sparse_sketch=None)
+        dense = X.toarray().astype(np.float64)
+        unit = dense / np.linalg.norm(dense, axis=1, keepdims=True)
+        D = 1.0 - unit[:200] @ unit.T
+        truth = np.argsort(D, axis=1, kind="stable")[:, :10]
+
+        def exact(qi, rows):
+            return np.take_along_axis(D[rows], qi, 1)
+    one = NNDescent(X, n_neighbors=10, random_state=42, device="cuda", **kw)
+    two = NNDescent(X, n_neighbors=10, random_state=42, devices=2, **kw)
+    assert [str(d) for d in two._mesh.devices.flat] == ["cuda:0", "cuda:1"]
+    qi, qd = two.query(Q, k=10, epsilon=0.2)
+    assert {str(key[0]) for key in two._mesh_replicas} == {"cuda:0", "cuda:1"}
+    assert recall(qi, truth) >= recall(one.query(Q, k=10, epsilon=0.2)[0], truth) - 0.02
+    np.testing.assert_allclose(qd, exact(qi, np.arange(len(qi))), rtol=1e-4, atol=1e-5)

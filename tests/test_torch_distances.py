@@ -71,13 +71,17 @@ def test_fast_alternatives_and_corrections(metric):
 
 
 def test_other_metrics_raise():
-    """The exact optimal-transport names are the ones still to be ported;
-    an unknown name is a ValueError, a callable passes."""
+    """An unknown name is a ValueError and a callable passes. The
+    optimal-transport names resolve, and without their cost matrix they
+    raise as the JAX package's do (``kantorovich`` a ValueError, ``sinkhorn``
+    a TypeError for the missing argument)."""
+    X = np.full((2, 3), 0.5, np.float32)
     for name in ("kantorovich", "wasserstein", "sinkhorn"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            td.pairwise(name, t(np.zeros((2, 3), np.float32)))
-        with pytest.raises(NotImplementedError, match="A4"):
-            td.check_metric(name)
+        td.check_metric(name)
+        with pytest.raises(ValueError if name != "sinkhorn" else TypeError):
+            jd.pairwise(name, X)
+        with pytest.raises(ValueError if name != "sinkhorn" else TypeError):
+            td.pairwise(name, t(X))
     with pytest.raises(ValueError, match="not recognized"):
         td.check_metric("no_such_metric")
     td.check_metric(lambda x, y: x)

@@ -305,3 +305,56 @@ def test_port_callable_bit_metric_takes_uint8_rows():
                   n_neighbors=8)
     assert index._is_bit and index._raw_data.dtype == np.uint8 and index._angular_trees
     assert recall(index.neighbor_graph[0], _knn_of(_hamming_matrix(raw, raw), 8)) >= 0.6
+
+
+def test_port_hub_tree_query_recall(nn_data):
+    """Twin of tests/test_hub_trees.py::test_hub_tree_query_recall (floor 0.90)."""
+    train, queries = nn_data[200:], nn_data[:200]
+    idx, _ = _port(train).query(queries, k=10, epsilon=0.2)
+    assert recall(idx, exact_knn(train, queries, 10)) >= 0.90
+
+
+def test_port_hub_tree_beats_random_on_neighbor_capture(nn_data):
+    """Twin of tests/test_hub_trees.py::test_hub_tree_beats_random_on_neighbor_capture:
+    hub-split leaves capture more true neighbor pairs than random splits,
+    and each tree scores as the JAX package's tree of the same seed does."""
+    import jax.numpy as jnp
+
+    from pynndescent_tpu.ops import rp_trees as jrp
+
+    n = len(nn_data)
+    idx = exact_knn(nn_data, nn_data, 10).astype(np.int32)
+    degrees = np.bincount(idx.reshape(-1), minlength=n).astype(np.int32)
+    depth = rp_trees.forest_depth(n, 30)
+    X = torch.from_numpy(nn_data)
+    hub, rand = [], []
+    for seed in (3, 11, 42):
+        for scores, deg in ((hub, degrees), (rand, None)):
+            o, s, z = rp_trees.build_tree_order(
+                X, seed, 30, depth, degrees=None if deg is None else torch.from_numpy(deg))
+            scores.append(rp_trees.score_tree(o, s, z, idx))
+            jo, js, jz = jrp.build_tree_order(jnp.asarray(nn_data), jnp.uint32(seed), 30, depth,
+                                              degrees=None if deg is None else jnp.asarray(deg))
+            assert scores[-1] == pytest.approx(jrp.score_tree(jo, js, jz, idx), abs=1e-12)
+    assert np.mean(hub) > np.mean(rand), (hub, rand)
+
+
+def test_port_hub_vs_random_query_recall(nn_data):
+    """Twin of tests/test_hub_trees.py::test_hub_vs_random_query_recall: the
+    hub search tree clears 0.90 and does not lose to a random tree of the
+    same leaf size at equal epsilon."""
+    from pynndescent_torch.models import search as search_ops
+
+    train, queries = nn_data[200:], nn_data[:200]
+    index = _port(train)
+    index.prepare()
+    truth = exact_knn(train, queries, 10)
+    hub_recall = recall(index.query(queries, k=10, epsilon=0.1)[0], truth)
+    st_leaf = index.search_tree_leaf_size or max(index.leaf_size, index.n_neighbors)
+    rand_tree = rp_trees.flatten_search_tree(index._X, 12345, leaf_size=st_leaf,
+                                             angular=index._angular_trees)
+    index._search_tree = rand_tree.to_arrays()
+    index._tree_dev = search_ops.tree_to_device(index._search_tree, index.device)
+    rand_recall = recall(index.query(queries, k=10, epsilon=0.1)[0], truth)
+    assert hub_recall >= 0.90, hub_recall
+    assert hub_recall >= rand_recall - 0.005, (hub_recall, rand_recall)

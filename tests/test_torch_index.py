@@ -236,10 +236,43 @@ def test_input_rejected(nn_data):
     {"shard_data": True},
 ])
 def test_unported_options_raise(nn_data, kwargs):
-    """What is still to be ported names its ROADMAP item: exact optimal
-    transport and the proxies that rerank by it (A4), meshes (A5)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A[45]"):
-        _port(nn_data[:100], **kwargs)
+    """The options the early slices left out now build and answer: the exact
+    optimal-transport names (every returned distance exact, no
+    ``NotImplementedError``), their proxies (the graph in the proxy's own
+    distances), a mesh of four CPU shards, and ``shard_data`` without a mesh
+    (ignored, as in the JAX package). A missing cost still raises at the
+    rerank, as in the JAX package; a proxy name given directly passes its
+    keywords to the proxy, which takes none, so it reranks only with a cost
+    it cannot be given (both packages, ROADMAP C)."""
+    from pynndescent_torch.ops import distances as dst
+    from pynndescent_torch.ops import optimal_transport as ot
+
+    data = nn_data[:100]
+    pos = np.arange(data.shape[1], dtype=np.float64)
+    cost = np.abs(pos[:, None] - pos[None, :])
+    metric = kwargs.get("metric")
+    if metric in ("kantorovich", "wasserstein", "sinkhorn"):
+        with pytest.raises((ValueError, TypeError)):
+            _port(data, n_neighbors=5, **kwargs).query(data[:3], k=3)
+        kwargs = dict(kwargs, metric_kwds={"cost": cost})
+    index = _port(data, n_neighbors=5, **kwargs)
+    gi, gd = index.neighbor_graph
+    if metric in ("proxy_kantorovich", "proxy_sinkhorn"):  # the proxy's own distances
+        want = dst.named_distances[metric](torch.from_numpy(data[:, None, :]),
+                                           torch.from_numpy(data[gi])).numpy()
+        np.testing.assert_allclose(gd, want, rtol=1e-5, atol=1e-6)
+        with pytest.raises((ValueError, TypeError)):
+            index.query(data[:3], k=3)
+        return
+    qi, qd = index.query(data[:10], k=3, epsilon=0.2)
+    assert qi.shape == (10, 3) and (qi >= 0).all() and np.isfinite(qd).all()
+    if metric in ("kantorovich", "wasserstein"):
+        want = ot.kantorovich(data[:10, None, :], data[qi], cost=cost)
+        np.testing.assert_allclose(qd, want, rtol=1e-6, atol=1e-7)
+    elif metric == "sinkhorn":
+        want = ot.sinkhorn(data[:10, None, :], data[qi], cost).numpy()
+        np.testing.assert_allclose(qd, want, rtol=1e-5)
+    assert (index._mesh is not None) == ("devices" in kwargs)
 
 
 def test_sparse_input_raises():

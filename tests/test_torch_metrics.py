@@ -116,12 +116,12 @@ def test_negative_entries_follow_the_same_guards():
 
 
 def test_registry_keys_equal_the_jax_package():
-    assert set(td.named_distances) == set(jd.named_distances) - OT
+    assert set(td.named_distances) == set(jd.named_distances)
     assert set(td.fast_distance_alternatives) == set(jd.fast_distance_alternatives)
     ot_proxies = {k for k, v in jd.proxy_distances.items()
                   if v["true_dist"].__name__ in ("kantorovich", "sinkhorn")}
-    assert ot_proxies == set(td.OT_PROXY_METRICS)
-    assert set(td.proxy_distances) == set(jd.proxy_distances) - ot_proxies
+    assert ot_proxies == {"proxy_kantorovich", "proxy_wasserstein", "proxy_sinkhorn"}
+    assert set(td.proxy_distances) == set(jd.proxy_distances)
     for key, entry in td.proxy_distances.items():
         assert entry["proxy_dist"].__name__ == jd.proxy_distances[key]["proxy_dist"].__name__
         assert entry["true_dist"].__name__ == jd.proxy_distances[key]["true_dist"].__name__

@@ -151,9 +151,9 @@ def test_gather_forest_init_matches_jax(small_forest):
     js = jnd._jit_forest_init(jn.make_neighbor_state(600, 8), jnp.asarray(X), jnp.asarray(o),
                               jnp.asarray(s), jnp.asarray(z), dist_rowwise=fn_j, leaf_cap=30,
                               block_rows=256)
-    ts = tnd.init_from_forest(tn.make_neighbor_state(600, 8), t(X), t(o), t(s), t(z),
-                              tnd._resolve_rowwise_metric("sqeuclidean"), leaf_cap=30,
-                              block_rows=256)
+    ts = tn.make_neighbor_state(600, 8)
+    tnd.init_from_forest(tnd.RowPart(0, 600, ts, t(X).__getitem__), t(o), t(s), t(z),
+                         tnd._resolve_rowwise_metric("sqeuclidean"), leaf_cap=30, block_rows=256)
     assert (n(ts.idx) == n(js.idx)).mean() > 0.999
     np.testing.assert_allclose(n(ts.dist), n(js.dist), rtol=1e-4, atol=1e-4)
 
@@ -173,8 +173,9 @@ def test_window_sweep_matches_jax():
 
 def test_init_random_seeds_self_first():
     X = clustered(500, 8, seed=1)
-    st = tnd.init_random(tn.make_neighbor_state(500, 6), t(X), 7, n_extra=6,
-                         dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"), block_rows=128)
+    st = tn.make_neighbor_state(500, 6)
+    tnd.init_random([tnd.RowPart(0, 500, st, t(X).__getitem__)], 7, n_extra=6,
+                    dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"), block_rows=128)
     np.testing.assert_array_equal(n(st.idx)[:, 0], np.arange(500))
     assert (n(st.dist)[:, 0] == 0).all() and (n(st.idx) >= 0).mean() > 0.9
 
@@ -207,7 +208,8 @@ def test_resolve_locality_matches_jax(locality, n_x):
 def test_descent_loop_delta_exit():
     X = clustered(400, 8, seed=2)
     fn = tnd._resolve_rowwise_metric("sqeuclidean")
-    st = tnd.init_random(tn.make_neighbor_state(400, 6), t(X), 1, 6, fn)
+    st = tn.make_neighbor_state(400, 6)
+    tnd.init_random([tnd.RowPart(0, 400, st, t(X).__getitem__)], 1, 6, fn)
     kw = dict(max_candidates=6, dist_rowwise=fn, block_rows=128, hop2_new_samples=6,
               hop2_old_samples=3)
     calls = []
@@ -241,3 +243,17 @@ def test_nn_descent_recall_near_jax():
     assert rec(n(ti)) >= rec(n(ji)) - 0.01 and rec(n(ti)) >= 0.98
     exact = d[np.arange(1500)[:, None], n(ti)]
     np.testing.assert_allclose(n(td), exact, rtol=1e-4, atol=1e-3)
+
+
+def test_port_nn_descent_duplicate_free_rows(nn_data):
+    """Twin of tests/test_nndescent_core.py::test_nn_descent_duplicate_free_rows:
+    no row holds an id twice, and each point's first neighbor is itself or
+    its distance-0 twin."""
+    data = np.vstack([nn_data[:50]] * 2)
+    indices, _ = tnd.nn_descent(t(data), 5, 3)
+    indices = n(indices)
+    for row in indices:
+        valid = row[row >= 0]
+        assert len(np.unique(valid)) == len(valid)
+    ids = np.arange(len(data))
+    assert np.all((indices[:, 0] == ids) | (indices[:, 0] == (ids + 50) % 100))

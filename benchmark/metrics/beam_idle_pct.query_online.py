@@ -1,0 +1,9 @@
+"""Share of the ``query/beam`` spans' host intervals in which no device
+operation runs: 100 x (1 - the union of the trace's kernel, copy and set
+intervals inside them / their length). The beam's host-bound share."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.idle_pct_inside(run, "query/beam")

@@ -44,7 +44,7 @@ from pynndescent_torch.ops import sparse_ell
 from pynndescent_torch.ops.neighbors import (MAX_ID, block_starts, make_neighbor_state,
                                               merge_candidates, state_from_graph)
 from pynndescent_torch.parallel import mesh as mesh_mod
-from pynndescent_torch.utils import rng
+from pynndescent_torch.utils import profiling, rng
 from pynndescent_torch.utils.profiling import PhaseTimer
 
 _ANGULAR_METRICS = (
@@ -276,66 +276,36 @@ class NNDescent:
         self.profile = profile
         self._timer = PhaseTimer(profile, self.device)
 
-        # dtype policy: float32 C-order dense (narrow CSR densified, wide CSR
-        # packed or sketched), uint8 for bit-packed metrics
-        self._input_is_sparse = sparse_ops.is_sparse(data)
-        self._ell = self._sketch = self._ell_store = self._ell_store_dev = None
-        self._graph_exact = self._graph_exact_ot = None
-        if self._input_is_sparse:
-            csr = data.tocsr()
-            if csr.shape[1] > sparse_ops.DENSIFY_MAX_FEATURES:
-                data = self._route_wide_sparse(csr)
-            else:
-                data = sparse_ops.densify(csr)
-        self._set_distance_func()
-        self._is_bit = metric in ("bit_hamming", "bit_jaccard") or (
-            callable(metric) and self.bit_metric)
-        self._input_dtype = np.uint8 if self._is_bit else np.float32
-        data = np.ascontiguousarray(np.asarray(data, dtype=self._input_dtype))
-        _check_finite(data, "data")
-        if data.ndim != 2:
-            raise ValueError(
-                f"Expected 2D array, got {data.ndim}D array instead. "
-                "Reshape your data either using array.reshape(-1, 1) if it "
-                "has a single feature or array.reshape(1, -1) if it "
-                "contains a single sample.")
-        n = data.shape[0]
-        if n >= MAX_ID:
-            raise ValueError(f"at most {MAX_ID - 1} points are supported, got {n}")
-        self.dim = data.shape[1]
+        with self._timer.trace(), profiling.span("build", self.device):
+            with profiling.span("ingest", self.device):
+                data = self._ingest(data)
+            n = data.shape[0]
+            if n_trees is None:
+                n_trees = rp_trees.default_n_trees(n)
+            if n_iters is None:
+                n_iters = max(5, int(round(np.log2(max(n, 2)))))
+            if max_candidates is None:
+                max_candidates = min(60, n_neighbors)
+            if leaf_size is None:
+                leaf_size = rp_trees.default_leaf_size(n_neighbors)
+            self.n_trees = n_trees
+            self.n_iters = n_iters
+            self.max_candidates = max_candidates
+            self.leaf_size = leaf_size
+            self.n_trees_after_update = max(2, int(round(n_trees / 3)))
+            # a sketch's internal graph is built twice as wide and reranked exactly
+            # down to n_neighbors (neighbor_graph)
+            self._build_k = min(max(n - 1, 1), 2 * n_neighbors) if self._sketch else n_neighbors
+            self._angular_trees = metric in _ANGULAR_METRICS or (
+                callable(metric) and self.angular_trees)
+            if self._sketch is not None and self._sketch["kind"] == "minhash":
+                # signatures share one norm: plain (offset euclidean) splits
+                self._angular_trees = False
+            self._root_seed = rng.resolve_seed(random_state)
+            if init_graph is not None and tree_init:
+                tree_init = False
+            self.tree_init = tree_init and n_trees > 0
 
-        if n_trees is None:
-            n_trees = rp_trees.default_n_trees(n)
-        if n_iters is None:
-            n_iters = max(5, int(round(np.log2(max(n, 2)))))
-        if max_candidates is None:
-            max_candidates = min(60, n_neighbors)
-        if leaf_size is None:
-            leaf_size = rp_trees.default_leaf_size(n_neighbors)
-        self.n_trees = n_trees
-        self.n_iters = n_iters
-        self.max_candidates = max_candidates
-        self.leaf_size = leaf_size
-        self.n_trees_after_update = max(2, int(round(n_trees / 3)))
-        # a sketch's internal graph is built twice as wide and reranked exactly
-        # down to n_neighbors (neighbor_graph)
-        self._build_k = min(max(n - 1, 1), 2 * n_neighbors) if self._sketch else n_neighbors
-        self._angular_trees = metric in _ANGULAR_METRICS or (
-            callable(metric) and self.angular_trees)
-        if self._sketch is not None and self._sketch["kind"] == "minhash":
-            # signatures share one norm: plain (offset euclidean) splits
-            self._angular_trees = False
-
-        if metric == "dot" and self._ell is None:
-            data = _unit_rows(data)
-        self._raw_data = data
-        self._X = torch.from_numpy(data).to(self.device)
-        self._root_seed = rng.resolve_seed(random_state)
-        if init_graph is not None and tree_init:
-            tree_init = False
-        self.tree_init = tree_init and n_trees > 0
-
-        with self._timer.trace():
             forest = None
             if self.tree_init:
                 if verbose:
@@ -367,7 +337,7 @@ class NNDescent:
                                   "the options are ignored")
             with self._timer.phase("descent"):
                 graph = self._descend(forest, init_state)
-        self._set_graph(graph)
+            self._set_graph(graph)
         if compressed:
             self.prepare()
             self.compress_index()
@@ -375,6 +345,42 @@ class NNDescent:
     # ------------------------------------------------------------------
     # build plumbing
     # ------------------------------------------------------------------
+
+    def _ingest(self, data):
+        """The rows as the build takes them, checked and copied to the
+        device as ``_X`` (``_raw_data`` keeps the host copy), and the
+        distance set up for them. Dtype policy: float32 C-order dense
+        (narrow CSR densified, wide CSR packed or sketched), uint8 for
+        bit-packed metrics."""
+        self._input_is_sparse = sparse_ops.is_sparse(data)
+        self._ell = self._sketch = self._ell_store = self._ell_store_dev = None
+        self._graph_exact = self._graph_exact_ot = None
+        if self._input_is_sparse:
+            csr = data.tocsr()
+            if csr.shape[1] > sparse_ops.DENSIFY_MAX_FEATURES:
+                data = self._route_wide_sparse(csr)
+            else:
+                data = sparse_ops.densify(csr)
+        self._set_distance_func()
+        self._is_bit = self.metric in ("bit_hamming", "bit_jaccard") or (
+            callable(self.metric) and self.bit_metric)
+        self._input_dtype = np.uint8 if self._is_bit else np.float32
+        data = np.ascontiguousarray(np.asarray(data, dtype=self._input_dtype))
+        _check_finite(data, "data")
+        if data.ndim != 2:
+            raise ValueError(
+                f"Expected 2D array, got {data.ndim}D array instead. "
+                "Reshape your data either using array.reshape(-1, 1) if it "
+                "has a single feature or array.reshape(1, -1) if it "
+                "contains a single sample.")
+        if data.shape[0] >= MAX_ID:
+            raise ValueError(f"at most {MAX_ID - 1} points are supported, got {data.shape[0]}")
+        self.dim = data.shape[1]
+        if self.metric == "dot" and self._ell is None:
+            data = _unit_rows(data)
+        self._raw_data = data
+        self._X = torch.from_numpy(data).to(self.device)
+        return data
 
     def _route_wide_sparse(self, csr):
         """CSR input wider than ``DENSIFY_MAX_FEATURES`` (JAX
@@ -684,6 +690,10 @@ class NNDescent:
         index, the codes."""
         if self._search_graph is not None:
             return
+        with profiling.span("prepare", self.device):
+            self._prepare()
+
+    def _prepare(self):
         self.__dict__.pop("_mesh_replicas", None)
         idx, dist = self._neighbor_graph
         if self.verbose:
@@ -849,18 +859,19 @@ class NNDescent:
 
     def _query_impl(self, query_data, k, epsilon, proxy_beam_size=4, expansions_per_step=2):
         q_ell = ell = None
-        if self._ell is not None or self._sketch is not None:
-            # packed at the queries' own width: never truncated
-            qcsr = self._sparse_rows(query_data, "queries")
-            qnnz = max(1, int(np.diff(qcsr.indptr).max(initial=1)))
-            q_ell = torch.from_numpy(sparse_ell.csr_to_ell_packed(qcsr, qnnz)).to(self.device)
-            if self._ell is not None:
-                q, ell = q_ell, (qnnz, self._ell["nnz"])
-            else:  # the beam runs on the queries' sketch
-                q = self._queries_to_device(
-                    sketch_ops.sketch_rows(qcsr, self._sketch, self._sketch["seed"], self.device))
-        else:
-            q = self._queries_to_device(query_data)
+        with profiling.span("query/ingest", self.device):
+            if self._ell is not None or self._sketch is not None:
+                # packed at the queries' own width: never truncated
+                qcsr = self._sparse_rows(query_data, "queries")
+                qnnz = max(1, int(np.diff(qcsr.indptr).max(initial=1)))
+                q_ell = torch.from_numpy(sparse_ell.csr_to_ell_packed(qcsr, qnnz)).to(self.device)
+                if self._ell is not None:
+                    q, ell = q_ell, (qnnz, self._ell["nnz"])
+                else:  # the beam runs on the queries' sketch
+                    q = self._queries_to_device(sketch_ops.sketch_rows(
+                        qcsr, self._sketch, self._sketch["seed"], self.device))
+            else:
+                q = self._queries_to_device(query_data)
         use_bf16 = self._X_search is not None
         is_proxy = self._is_proxy or self._quantized is not None or self._sketch is not None
         if is_proxy:
@@ -915,8 +926,10 @@ class NNDescent:
         if is_proxy or use_bf16:
             with self._timer.phase("query/rerank"):
                 idx, d = self._rerank(q, idx, k, q_ell)
-            return idx.cpu().numpy(), d.cpu().numpy()
-        idx, d = idx[:, :k].cpu().numpy(), d[:, :k].cpu().numpy()
+            with profiling.span("query/fetch", self.device):
+                return idx.cpu().numpy(), d.cpu().numpy()
+        with profiling.span("query/fetch", self.device):
+            idx, d = idx[:, :k].cpu().numpy(), d[:, :k].cpu().numpy()
         if self._distance_correction is not None:
             d = np.asarray(self._distance_correction(d), np.float32)
         return idx, d

@@ -18,7 +18,7 @@ import torch
 from pynndescent_torch.ops.neighbors import (NeighborState, make_neighbor_state, merge_candidates,
                                               take_smallest)
 from pynndescent_torch.ops.rp_trees import descend_tree
-from pynndescent_torch.utils import rng
+from pynndescent_torch.utils import profiling, rng
 
 _TREE_KEYS = ("a_pt", "b_pt", "child", "leaf_lo", "leaf_hi", "tree_order")
 # gathered candidate elements per seeding pass past a leaf's first leaf_max
@@ -55,7 +55,7 @@ def _leaf_window(tree, lo, hi, first: int, width: int):
 
 
 def _seed_beam(queries, X, tree, lo, hi, rand_ids, *, beam_width: int, leaf_max: int,
-               dist_rowwise) -> NeighborState:
+               dist_rowwise, tally=profiling.NULL_SPAN) -> NeighborState:
     """Initial beam: k random points and every member of each query's
     search-tree leaf, as in the reference's search init. The first pass
     merges the random points and the first ``leaf_max`` members of every
@@ -63,7 +63,7 @@ def _seed_beam(queries, X, tree, lo, hi, rand_ids, *, beam_width: int, leaf_max:
     package stops there (a static shape for its compile cache); here the
     queries whose leaf reaches further merge the rest in chunks sized so that
     the gathered [rows, chunk, d] tile holds about _SEED_TILE_ELEMS
-    elements."""
+    elements. ``tally`` (a span) counts the ``seed_passes``."""
     q, d = queries.shape
     dev = queries.device
     state = make_neighbor_state(q, beam_width, device=dev)
@@ -71,6 +71,7 @@ def _seed_beam(queries, X, tree, lo, hi, rand_ids, *, beam_width: int, leaf_max:
     first, width = 0, leaf_max
     end = tree["max_leaf"] if tree is not None else 0
     while True:
+        tally.count(seed_passes=1)
         cand = extra
         if first < end:
             cand = torch.cat([_leaf_window(tree, lo[rows], hi[rows], first, width), extra], dim=-1)
@@ -104,38 +105,43 @@ def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
     q = queries.shape[0]
     n = X.shape[0]
     dev = queries.device
-    lo = hi = None
-    if tree is not None:
-        coins = torch.randint(0, 1 << 32, (q,), generator=gen, device=dev, dtype=torch.int64)
-        lo, hi = descend_tree(tree, X, queries if tree_queries is None else tree_queries, coins,
-                              tree["depth"], tree["angular"], ell=ell)
-    rand_ids = torch.randint(0, n, (q, k), generator=gen, device=dev, dtype=torch.int32)
-    state = _seed_beam(queries, X, tree, lo, hi, rand_ids, beam_width=beam_width,
-                       leaf_max=leaf_max, dist_rowwise=dist_rowwise)
+    with profiling.span("query/seed", dev) as sp:
+        lo = hi = None
+        if tree is not None:
+            coins = torch.randint(0, 1 << 32, (q,), generator=gen, device=dev, dtype=torch.int64)
+            lo, hi = descend_tree(tree, X, queries if tree_queries is None else tree_queries,
+                                  coins, tree["depth"], tree["angular"], ell=ell)
+        rand_ids = torch.randint(0, n, (q, k), generator=gen, device=dev, dtype=torch.int32)
+        state = _seed_beam(queries, X, tree, lo, hi, rand_ids, beam_width=beam_width,
+                           leaf_max=leaf_max, dist_rowwise=dist_rowwise, tally=sp)
 
     E = expansions_per_step
     deg = adj.shape[1]
     steps = 0
-    while steps < max_steps:
-        bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
-        if not bool((state.flag & (state.dist < bound[:, None])).any()):
-            break
-        masked = torch.where(state.flag, state.dist, torch.full_like(state.dist, float("inf")))
-        if E == 1:
-            pos = torch.argmin(masked, dim=1, keepdim=True)
-            vdist = torch.gather(masked, 1, pos)
-        else:
-            vdist, pos = take_smallest(masked, E)
-        do = vdist < bound[:, None]
-        v = torch.where(do, torch.gather(state.idx, 1, pos), torch.zeros_like(pos, dtype=torch.int32))
-        flag = state.flag.scatter(1, pos, torch.where(do, False, torch.gather(state.flag, 1, pos)))
-        state = state._replace(flag=flag)
-        nbrs = adj[v.to(torch.int64)].reshape(q, E * deg)
-        nbrs = torch.where(do.repeat_interleave(deg, dim=1), nbrs, torch.full_like(nbrs, -1))
-        nd = dist_rowwise(queries, X[torch.clamp(nbrs, min=0).to(torch.int64)])
-        nd = torch.where(nbrs < 0, torch.full_like(nd, float("inf")), nd)
-        state, _ = merge_candidates(state, nbrs, nd)
-        steps += 1
+    with profiling.span("query/beam", dev) as sp:
+        while steps < max_steps:
+            bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
+            if not bool((state.flag & (state.dist < bound[:, None])).any()):
+                break
+            masked = torch.where(state.flag, state.dist, torch.full_like(state.dist, float("inf")))
+            if E == 1:
+                pos = torch.argmin(masked, dim=1, keepdim=True)
+                vdist = torch.gather(masked, 1, pos)
+            else:
+                vdist, pos = take_smallest(masked, E)
+            do = vdist < bound[:, None]
+            v = torch.where(do, torch.gather(state.idx, 1, pos),
+                            torch.zeros_like(pos, dtype=torch.int32))
+            flag = state.flag.scatter(1, pos,
+                                      torch.where(do, False, torch.gather(state.flag, 1, pos)))
+            state = state._replace(flag=flag)
+            nbrs = adj[v.to(torch.int64)].reshape(q, E * deg)
+            nbrs = torch.where(do.repeat_interleave(deg, dim=1), nbrs, torch.full_like(nbrs, -1))
+            nd = dist_rowwise(queries, X[torch.clamp(nbrs, min=0).to(torch.int64)])
+            nd = torch.where(nbrs < 0, torch.full_like(nd, float("inf")), nd)
+            state, _ = merge_candidates(state, nbrs, nd)
+            steps += 1
+        sp.count(steps=steps, queries=q)
     return state.idx[:, :k], state.dist[:, :k], steps
 
 

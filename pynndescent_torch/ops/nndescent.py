@@ -35,7 +35,7 @@ from pynndescent_torch.ops.neighbors import (
     sort_by_distance,
     take_smallest,
 )
-from pynndescent_torch.utils import rng
+from pynndescent_torch.utils import profiling, rng
 
 DEFAULT_BLOCK_ROWS = 8192
 # below this many vertices the slot reservoir samples reverse candidates;
@@ -352,11 +352,13 @@ def _descent_iteration(state: NeighborState, X, seed: int, *, max_candidates: in
 
 def descent_loop(state, X, seed: int, stop_count: float, *, n_iters: int, max_candidates: int,
                  dist_rowwise, block_rows: int, hop2_new_samples: int, hop2_old_samples: int,
-                 window_rows: int | None = None, shards=None, verbose: bool = False):
+                 window_rows: int | None = None, shards=None, verbose: bool = False,
+                 tally=profiling.NULL_SPAN):
     """Join iterations until ``n_iters`` or until an iteration changes at
     most ``stop_count`` slots (the delta exit, JAX :1145). Each test reads
     the change count: one host sync per iteration. ``shards`` as in
-    ``_descent_iteration``."""
+    ``_descent_iteration``. ``tally`` (a span) counts the ``iters`` run and
+    the ``changes`` they read."""
     for it in range(n_iters):
         state, changes = _descent_iteration(
             state, X, rng.derive_seed(seed, rng.ROLE_DESCENT_ITER, it),
@@ -365,6 +367,7 @@ def descent_loop(state, X, seed: int, stop_count: float, *, n_iters: int, max_ca
             window_rows=window_rows, shards=shards,
         )
         changes = int(changes)
+        tally.count(iters=1, changes=changes)
         if verbose:
             print(f"\t{it + 1}  /  {n_iters}  (changes: {changes}"
                   + (f", {len(shards)} shards)" if shards else ")"))
@@ -632,32 +635,33 @@ def nn_descent(
     block_rows = join_block_rows(n, d_bytes, max_candidates, hop2_new_samples, hop2_old_samples,
                                  block_rows)
 
-    if compute_dtype is not None and X.dtype == torch.float32 and isinstance(metric, str):
-        X_join = X.to(compute_dtype)
-    else:
-        X_join, compute_dtype = X, None
-
-    state = init_graph if init_graph is not None else make_neighbor_state(n, k, device=dev)
-    shards = _row_shards(X_join, devices) if devices is not None and len(devices) > 1 else None
-    parts = [RowPart(lo, hi, _placed(state, lo, hi, Xd.device), Xd.__getitem__)
-             for lo, hi, Xd in shards or [(0, n, X_join)]]
-
-    if forest is not None:
-        orders, starts, sizes = forest
-        if kernel_init and _kernel_init_ok(metric, metric_kwds, X_join) and shards is None:
-            state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=metric)
+    with profiling.span("descent/init", dev):
+        if compute_dtype is not None and X.dtype == torch.float32 and isinstance(metric, str):
+            X_join = X.to(compute_dtype)
         else:
-            fb = forest_block_rows(int(orders.shape[0]), leaf_cap, d_bytes)
-            tables = {}
-            for p in parts:
-                pdev = p.state.idx.device
-                if pdev not in tables:
-                    tables[pdev] = [_to(f, pdev) for f in forest]
-                init_from_forest(p, *tables[pdev], dist_rowwise, leaf_cap=leaf_cap,
-                                 block_rows=fb)
-    init_random(parts, rng.derive_seed(seed, rng.ROLE_DESCENT_INIT), n_extra=k,
-                dist_rowwise=dist_rowwise, block_rows=random_block_rows(k, d_bytes))
-    _write_back(state, parts)
+            X_join, compute_dtype = X, None
+
+        state = init_graph if init_graph is not None else make_neighbor_state(n, k, device=dev)
+        shards = _row_shards(X_join, devices) if devices is not None and len(devices) > 1 else None
+        parts = [RowPart(lo, hi, _placed(state, lo, hi, Xd.device), Xd.__getitem__)
+                 for lo, hi, Xd in shards or [(0, n, X_join)]]
+
+        if forest is not None:
+            orders, starts, sizes = forest
+            if kernel_init and _kernel_init_ok(metric, metric_kwds, X_join) and shards is None:
+                state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=metric)
+            else:
+                fb = forest_block_rows(int(orders.shape[0]), leaf_cap, d_bytes)
+                tables = {}
+                for p in parts:
+                    pdev = p.state.idx.device
+                    if pdev not in tables:
+                        tables[pdev] = [_to(f, pdev) for f in forest]
+                    init_from_forest(p, *tables[pdev], dist_rowwise, leaf_cap=leaf_cap,
+                                     block_rows=fb)
+        init_random(parts, rng.derive_seed(seed, rng.ROLE_DESCENT_INIT), n_extra=k,
+                    dist_rowwise=dist_rowwise, block_rows=random_block_rows(k, d_bytes))
+        _write_back(state, parts)
 
     stop_count = delta * k * n
     join_kw = dict(max_candidates=max_candidates, dist_rowwise=dist_rowwise,
@@ -677,36 +681,41 @@ def nn_descent(
             if phase_iters <= 0:
                 phase_iters = max(4, n_iters // 2)
                 phases = min(phases, 2)
-        orders = forest[0]
-        T = int(orders.shape[0])
-        for ph in range(phases):
-            order = orders[ph % T]
-            state = _state_to_tree_order(state, order)
-            Xp = X_join[_long(order)].contiguous()
-            if sweep_win:
-                state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=metric)
-                if sweep_stagger:
-                    state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=metric,
-                                         offset=sweep_win // 2)
-            if phase_iters > 0:
-                state = descent_loop(
-                    state, Xp, rng.derive_seed(seed, rng.ROLE_DESCENT_LOCAL, ph), stop_count,
-                    n_iters=phase_iters, window_rows=W, **join_kw,
-                )
-            state = _state_from_tree_order(state, order)
-            del Xp
-            if verbose:
-                print(f"\tlocality phase {ph + 1} / {phases} (window {W}, tree {ph % T}"
-                      + (f", sweep {sweep_win}x{sweep_m}" if sweep_win else "") + ")")
-        n_iters = max(global_iters, 0)
-        if refresh_flags and n_iters > 0:
-            state = NeighborState(state.idx, state.dist, state.idx >= 0)
+        with profiling.span("descent/sweeps", dev) as sp:
+            sp.count(phases=phases, win=sweep_win, m=sweep_m)
+            orders = forest[0]
+            T = int(orders.shape[0])
+            for ph in range(phases):
+                order = orders[ph % T]
+                state = _state_to_tree_order(state, order)
+                Xp = X_join[_long(order)].contiguous()
+                if sweep_win:
+                    state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=metric)
+                    if sweep_stagger:
+                        state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=metric,
+                                             offset=sweep_win // 2)
+                if phase_iters > 0:
+                    state = descent_loop(
+                        state, Xp, rng.derive_seed(seed, rng.ROLE_DESCENT_LOCAL, ph), stop_count,
+                        n_iters=phase_iters, window_rows=W, tally=sp, **join_kw,
+                    )
+                state = _state_from_tree_order(state, order)
+                del Xp
+                if verbose:
+                    print(f"\tlocality phase {ph + 1} / {phases} (window {W}, tree {ph % T}"
+                          + (f", sweep {sweep_win}x{sweep_m}" if sweep_win else "") + ")")
+            n_iters = max(global_iters, 0)
+            if refresh_flags and n_iters > 0:
+                state = NeighborState(state.idx, state.dist, state.idx >= 0)
 
-    state = descent_loop(state, X_join, seed, stop_count, n_iters=n_iters, shards=shards, **join_kw)
-    idx, dist = sort_by_distance(state.idx, state.dist)
-    if compute_dtype is not None:
-        rb = max(1024, min(65536, (1 << 29) // max(k * d * 4, 1)))
-        idx, dist = exact_rerank_graph(X, idx, dist_rowwise=dist_rowwise, block_rows=rb)
+    with profiling.span("descent/join", dev) as sp:
+        state = descent_loop(state, X_join, seed, stop_count, n_iters=n_iters, shards=shards,
+                             tally=sp, **join_kw)
+    with profiling.span("descent/finish", dev):
+        idx, dist = sort_by_distance(state.idx, state.dist)
+        if compute_dtype is not None:
+            rb = max(1024, min(65536, (1 << 29) // max(k * d * 4, 1)))
+            idx, dist = exact_rerank_graph(X, idx, dist_rowwise=dist_rowwise, block_rows=rb)
     return idx, dist
 
 

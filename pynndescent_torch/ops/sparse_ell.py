@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from pynndescent_torch.ops import distances as dst
+from pynndescent_torch.utils import profiling
 
 # float32 represents every integer up to 2^24 exactly, so the packed indices
 # are exact up to that many features
@@ -89,7 +90,7 @@ def _tagged_sort(x_packed, y_packed, nnz_x: int, nnz_y: int):
     ``index * 2 + side`` (x entries even, y entries odd; padding after every
     real key). Indices turn int32 before the arithmetic: float32 keys would
     collide for indices >= 2^23. Returns (sorted keys, values in key order)."""
-    with torch.profiler.record_function("sparse_ell.tagged_sort"):
+    with profiling.span("sparse_ell.tagged_sort", x_packed.device):
         xi, xv = _split(x_packed, nnz_x)
         yi, yv = _split(y_packed, nnz_y)
         lead = torch.broadcast_shapes(xi.shape[:-1], yi.shape[:-1])

@@ -52,7 +52,14 @@ non-zero:
     must equal where it misses the floor); ``update()`` with 100,000 fresh
     rows and a pickle round trip with identical answers; then
     ``shard_data=True`` on the same cell.
-    Phases 13-14 launch no kernel (neither package has one on these paths).
+    Phases 13-14 launch no kernel (neither package has one on these paths);
+15. search: the benchmark's ``fmnist784.query-online`` index (60k x 784, the
+    bfloat16 search copy, beam 48, E 2, degree 15) queried by the main path,
+    whose ``search_seed`` and ``beam_search`` launches are counted; each
+    kernel held to the torch loop on the same seeded inputs, bit for bit on
+    small-integer rows over the index's tree and graph, within tolerance on
+    its own rows; their times at one query and at a block of 8,192 beside
+    the torch loop's and their byte bound.
 
 The last two lines are a JSON object describing the kernels and, last,
 ``{"ok": true, "device": {...}}``. Recall is measured against an exact fp32
@@ -1488,11 +1495,225 @@ def phase_mesh(torch, state):
     torch.cuda.empty_cache()
 
 
+def search_bytes(torch, X, adj, tree, Q, coins, k, E, steps):
+    """Bytes each query's search reads, (seed [q], beam [q]): the tree
+    levels' two anchor rows, the leaf's ids and rows, the random rows and the
+    query; per beam step E adjacency rows and the rows of their valid
+    entries. ``steps`` [q] are the queries' step counts."""
+    from pynndescent_torch.ops import rp_trees as tr
+
+    row_bytes = X.shape[1] * X.element_size()
+    valid_deg = float((adj >= 0).sum(dim=1).float().mean())
+    lo, hi = tr.descend_tree(tree, X, Q, coins, tree["depth"], tree["angular"])
+    levels = torch.full((Q.shape[0],), tree["depth"], device=Q.device)
+    for depth in range(tree["depth"] - 1, -1, -1):  # the fewest levels that reach the leaf
+        at = tr.descend_tree(tree, X, Q, coins, depth, tree["angular"])[0]
+        levels = torch.where(at >= 0, torch.full_like(levels, depth), levels)
+    seed = levels.double() * 2 * row_bytes + (hi - lo).double() * (8 + row_bytes) \
+        + k * (4 + row_bytes) + X.shape[1] * 4
+    beam = steps.double() * E * (adj.shape[1] * 4 + valid_deg * row_bytes)
+    return seed, beam
+
+
+def _search_inputs(torch, Q, n, k, seed):
+    """The tie-break coins and random ids of a block, drawn as search_block
+    draws them."""
+    from pynndescent_torch.utils import rng
+
+    gen = rng.generator(seed, Q.device)
+    coins = torch.randint(0, 1 << 32, (Q.shape[0],), generator=gen, device=Q.device,
+                          dtype=torch.int64)
+    rand = torch.randint(0, n, (Q.shape[0], k), generator=gen, device=Q.device, dtype=torch.int32)
+    return coins, rand
+
+
+def phase_search(torch, state):
+    """The online cell's first index on the card: the main path's query()
+    with the search kernels' launches counted, each kernel against the torch
+    loop on the same seeded inputs, and their times beside its."""
+    from benchmark import data as bench_data
+    from benchmark.loops import random_state
+    from benchmark.spec import Spec
+    from pynndescent_torch import NNDescent
+    from pynndescent_torch.models import search as ts
+    from pynndescent_torch.ops import nndescent as tnd
+    from pynndescent_torch.ops import rp_trees as tr
+    from pynndescent_torch.ops import search_kernels as sk
+    from pynndescent_torch.utils import rng
+
+    card = state["card"]
+    spec = Spec()
+    cfg, mix = spec.config("fmnist784"), spec.traffic("query-single")
+    inputs = bench_data.make(spec.generator(cfg["generator"]), cfg, mix, 1, "cuda")
+    index = NNDescent(inputs.train, metric=cfg["metric"], device="cuda",
+                      random_state=random_state(cfg["dataset_seed"], "index", 0), **cfg["index"])
+    index.prepare()
+    eps = cfg["query"]["epsilon"]
+    X, adj, tree = index._X_search, index._search_graph, index._tree_dev
+    if X.dtype != torch.bfloat16:
+        raise AssertionError("search: the online cell's index has no bfloat16 search copy")
+    n, d = X.shape
+    metric = index._internal_metric
+    k, width, E = 15, 48, 2  # what query(k=10) searches with on a bfloat16 copy
+    leaf_max = min(-(-2 * tree["leaf_size"] // 64) * 64, n)
+    dist_fn = tnd._resolve_rowwise_metric(metric, cast_candidates_f32=True)
+    loop_kw = dict(k=k, epsilon=eps, min_distance=index._min_distance, max_steps=n,
+                   expansions_per_step=E)
+    seed_z, beam_z = ts._top_k_order(width, k + leaf_max), ts._top_k_order(width, E * adj.shape[1])
+
+    # the main path: one call of the pool's 10,000 queries (two blocks), then
+    # single-query calls as the cell sends them
+    Q_all = torch.from_numpy(inputs.pool).cuda()
+    sk.reset_launch_counts()
+    qi, _ = index.query(Q_all, k=10, epsilon=eps)
+    torch.cuda.synchronize()
+    launches = dict(sk.LAUNCHES)
+    blocks = -(-len(inputs.pool) // 8192)
+    if launches != {"search_seed": blocks, "beam_search": blocks}:
+        raise AssertionError(f"search: {launches} launches for {blocks} blocks")
+    singles = 50
+    sk.reset_launch_counts()
+    for i in range(singles):
+        index.query(inputs.pool[i:i + 1], k=10, epsilon=eps)
+    one = dict(sk.LAUNCHES)
+    if one != {"search_seed": singles, "beam_search": singles}:
+        raise AssertionError(f"search: {one} launches for {singles} single-query calls")
+    state["search_launches"] = {key: launches[key] + one[key] for key in launches}
+    truth = exact_knn(torch, torch.from_numpy(inputs.train).cuda(), Q_all, 10)
+    q_rec = recall(qi, truth)
+    log(f"[15 search] fmnist784.query-online index 0: {n} x {d} {X.dtype}, graph degree "
+        f"{adj.shape[1]}, tree depth {tree['depth']}; query() of {len(inputs.pool)} queries "
+        f"recall@10 {q_rec:.4f} (floor {cfg['recall_floor']}); launches {launches}, "
+        f"{singles} single calls {one} | {card}")
+    if q_rec < cfg["recall_floor"]:
+        raise AssertionError(f"search: recall {q_rec:.4f} under the cell's floor")
+
+    # exact rows: small integers (exact in bfloat16, every sum exact in fp32)
+    # over the index's tree and graph, so both paths must give the same bits
+    g = rng.generator(3, X.device)
+    Xi = torch.randint(-3, 4, (n, d), generator=g, device=X.device).to(torch.bfloat16)
+    Qi = torch.randint(-3, 4, (2000, d), generator=g, device=X.device).float()
+    coins, rand = _search_inputs(torch, Qi, n, k, 5)
+    got = sk.search_seed(Qi, Xi, tree, coins, rand, metric=metric, beam_width=width,
+                         signed_zero=seed_z)
+    lo, hi = tr.descend_tree(tree, Xi, Qi, coins, tree["depth"], tree["angular"])
+    want = ts._seed_beam(Qi, Xi, tree, lo, hi, rand, beam_width=width, leaf_max=leaf_max,
+                         dist_rowwise=dist_fn)
+    for a, b, what in zip(got, want, ("ids", "distances", "flags")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"search_seed: {what} differ from the torch loop on exact rows")
+    gi, gd, gs = sk.beam_search(Qi, Xi, adj, got, metric=metric, signed_zero=beam_z, **loop_kw)
+    ws_state, ws = ts._beam_loop(Qi, Xi, adj, want, dist_rowwise=dist_fn, **loop_kw)
+    if not (torch.equal(gi, ws_state.idx[:, :k]) and torch.equal(gd, ws_state.dist[:, :k])
+            and int(gs.max()) == ws):
+        raise AssertionError("beam_search: ids, distances or steps differ from the torch loop "
+                             "on exact rows")
+    log(f"[15 search] exact rows 2000 queries: search_seed and beam_search equal the torch loop "
+        f"bit for bit (ids, distances, flags; {ws} steps) | {card}")
+
+    # the index's own rows and the cell's queries, one block of 8,192: the
+    # two paths sum in other orders, so ids agree except at near-ties and
+    # distances within the kernel tolerance
+    Q = index._queries_to_device(inputs.pool[:8192])
+    coins, rand = _search_inputs(torch, Q, n, k, 5)
+    sq_scale = float((Q.double() ** 2).sum(1).max()) + float(
+        (X[:20000].double() ** 2).sum(1).max())
+    errs = {}
+
+    def compare(name, gi_, gd_, wi_, wd_):
+        rows_same = float((gi_ == wi_).all(dim=1).float().mean())
+        same = gi_ == wi_
+        errs[name] = check_close(torch, name, gd_[same], wd_[same], sq_scale)
+        if rows_same < 0.99:
+            raise AssertionError(f"{name}: ids equal the torch loop's on {rows_same:.4f} of the "
+                                 f"queries, under 0.99")
+        return rows_same
+
+    got = sk.search_seed(Q, X, tree, coins, rand, metric=metric, beam_width=width,
+                         signed_zero=seed_z)
+    lo, hi = tr.descend_tree(tree, X, Q, coins, tree["depth"], tree["angular"])
+    want = ts._seed_beam(Q, X, tree, lo, hi, rand, beam_width=width, leaf_max=leaf_max,
+                         dist_rowwise=dist_fn)
+    seed_same = compare("search_seed", got.idx, got.dist, want.idx, want.dist)
+    gi, gd, gs = sk.beam_search(Q, X, adj, got, metric=metric, signed_zero=beam_z, **loop_kw)
+    ws_state, ws = ts._beam_loop(Q, X, adj, got, dist_rowwise=dist_fn, **loop_kw)
+    beam_same = compare("beam_search", gi, gd, ws_state.idx[:, :k], ws_state.dist[:, :k])
+    log(f"[15 search] index rows, 8192 queries: ids equal the torch loop's on {seed_same:.4f} "
+        f"(seed) and {beam_same:.4f} (beam, from the same seed state) of the queries, max abs "
+        f"err {errs['search_seed']:.3g} / {errs['beam_search']:.3g}; steps {int(gs.max())} "
+        f"against {ws} | {card}")
+
+    # times: a kernel's device time alone (its launch enqueued behind a device
+    # sleep that outlasts the wrapper's host work), the torch loop's by CUDA
+    # events around it, at one query a block and at the block of 8,192
+    def device_ms(fn, behind_sleep):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if behind_sleep:
+            torch.cuda._sleep(2_000_000)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    def kernels(q):
+        c, r = _search_inputs(torch, q, n, k, 5)
+        seed_ms, st = device_ms(lambda: sk.search_seed(q, X, tree, c, r, metric=metric,
+                                                       beam_width=width, signed_zero=seed_z), True)
+        beam_ms, out = device_ms(lambda: sk.beam_search(q, X, adj, st, metric=metric,
+                                                        signed_zero=beam_z, **loop_kw), True)
+        return seed_ms, beam_ms, st, c, out[2]
+
+    def plain(q, st):
+        c, r = _search_inputs(torch, q, n, k, 5)
+
+        def seed():
+            lo_, hi_ = tr.descend_tree(tree, X, q, c, tree["depth"], tree["angular"])
+            return ts._seed_beam(q, X, tree, lo_, hi_, r, beam_width=width, leaf_max=leaf_max,
+                                 dist_rowwise=dist_fn)
+        seed_ms, _ = device_ms(seed, False)
+        beam_ms, _ = device_ms(lambda: ts._beam_loop(q, X, adj, st, dist_rowwise=dist_fn,
+                                                     **loop_kw), False)
+        return seed_ms, beam_ms
+
+    plain(Q[:64], kernels(Q[:64])[2])  # every shape runs once before the timing
+    times = {}
+    n_single = 20
+    one = [kernels(Q[i:i + 1]) for i in range(n_single)]
+    one_plain = [plain(Q[i:i + 1], p[2]) for i, p in enumerate(one)]
+    c1 = torch.cat([p[3] for p in one])
+    s1 = torch.cat([p[4] for p in one])
+    seed_b, beam_b = search_bytes(torch, X, adj, tree, Q[:n_single], c1, k, E, s1)
+    big = [kernels(Q) for _ in range(3)]
+    big_plain = plain(Q, big[0][2])
+    seed_bb, beam_bb = search_bytes(torch, X, adj, tree, Q, big[0][3], k, E, big[0][4])
+    index_bytes = X.numel() * X.element_size() + adj.numel() * 4 + tree["tree_order"].numel() * 8
+    for j, name in enumerate(("search_seed", "beam_search")):
+        per_q = (seed_b, beam_b)[j]
+        block = float((seed_bb, beam_bb)[j].sum())
+        times[name] = {
+            "ms": float(np.mean([p[j] for p in one])),
+            "plain_ms": float(np.mean([p[j] for p in one_plain])),
+            "bound_ms": 1e3 * float(per_q.mean()) / PEAK_BYTES_PER_S,
+            "block_ms": min(p[j] for p in big), "block_plain_ms": big_plain[j],
+            "block_bound_ms": 1e3 * min(block, index_bytes) / PEAK_BYTES_PER_S}
+        log(f"[15 search] {name}: one query {times[name]['ms']:.4f} ms (torch loop "
+            f"{times[name]['plain_ms']:.3f} ms, byte bound {times[name]['bound_ms']:.5f} ms); "
+            f"block of {Q.shape[0]} {times[name]['block_ms']:.4f} ms (torch loop "
+            f"{times[name]['block_plain_ms']:.3f} ms, bound {times[name]['block_bound_ms']:.4f} "
+            f"ms) | {card}")
+    state["search_errs"] = errs
+    state["search_times"] = times
+    del index, X, Xi
+    torch.cuda.empty_cache()
+
+
 PHASES = {"setup": phase_setup, "kernels": phase_kernels, "100k": phase_100k,
           "100k_cosine": phase_100k_cosine, "1m": phase_1m, "determinism": phase_determinism,
           "mnist784": phase_mnist784, "quantized": phase_quantized, "metrics": phase_metrics,
           "sparse_cosine": phase_sparse_cosine, "sparse_jaccard": phase_sparse_jaccard,
-          "sparse_ell": phase_sparse_ell, "ot": phase_ot, "mesh": phase_mesh}
+          "sparse_ell": phase_sparse_ell, "ot": phase_ot, "mesh": phase_mesh,
+          "search": phase_search}
 
 
 def main():
@@ -1519,11 +1740,12 @@ def main():
         PHASES[name](torch, state)
     log(f"[done] phases {','.join(selected)} in {time.perf_counter() - t_start:.1f} s | "
         f"{state['card']}")
+    kernels = []
+    src = "pynndescent_torch/csrc/"
     if "kernels" in selected:
         # null: no build ran in this call, so no launch was counted
         launches = state.get("path_launches")
         errs = state["errs"]
-        src = "pynndescent_torch/csrc/"
         kernels = [
             {"name": name, "route": "cuda", "source": src + source,
              "replaces": "pynndescent_tpu/ops/pallas_init.py:" + line,
@@ -1538,6 +1760,18 @@ def main():
                 ("row_sqnorms", "sq", "window_topm.cu", "248"))
         ]
         kernels[0]["shapes"] = state["leaf_shapes"]  # 100k x 128, 100k x 100, 1M x 128, 70k x 784
+    if "search" in selected:
+        # no TPU kernel: the JAX package runs the search as an XLA while_loop;
+        # ms / plain_ms / bound_ms at one query a block (the online cell), the
+        # block_ entries at 8,192
+        kernels += [
+            {"name": name, "route": "cuda", "source": src + "beam_search.cu",
+             "replaces": "pynndescent_tpu/models/search.py:" + line,
+             "launches": state["search_launches"][name],
+             "max_abs_err": state["search_errs"][name], **state["search_times"][name],
+             "bound_by": "bytes"}
+            for name, line in (("search_seed", "75"), ("beam_search", "138"))]
+    if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -889,6 +889,8 @@ class NNDescent:
         tree_queries = None
         min_distance = self._min_distance
         search_q = q
+        # the registry name of what dist_rowwise computes, where it is one
+        metric = metric_kwds = None
         if self._quantized is not None:
             # the beam runs on codes, the tree descent on the float queries
             cand_X = self._quantized_codes_dev
@@ -903,8 +905,9 @@ class NNDescent:
             dist_rowwise = nnd_ops._resolve_rowwise_metric(self._make_ell_closure(*ell))
         else:
             cand_X = self._X_search if use_bf16 else self._X
+            metric, metric_kwds = self._internal_metric, self._internal_metric_kwds
             dist_rowwise = nnd_ops._resolve_rowwise_metric(
-                self._internal_metric, self._internal_metric_kwds, cast_candidates_f32=use_bf16)
+                metric, metric_kwds, cast_candidates_f32=use_bf16)
         if self._quantized is None:  # keywords move to the inputs' device at each call
             def rowwise_on(device):
                 return dist_rowwise
@@ -922,6 +925,7 @@ class NNDescent:
             rng.derive_seed(self._root_seed, rng.ROLE_SEARCH, 2), k=search_k, epsilon=epsilon,
             min_distance=min_distance, beam_width=beam, dist_rowwise=dist_rowwise,
             expansions_per_step=int(expansions_per_step), tree_queries=tree_queries, ell=ell,
+            metric=metric, metric_kwds=metric_kwds,
         )
         if is_proxy or use_bf16:
             with self._timer.phase("query/rerank"):

@@ -6,8 +6,12 @@ A batch of queries steps in lockstep: each query keeps one sorted beam of
 ``expansions_per_step`` best unexpanded entries under the bound
 ``d_k + epsilon * (d_k - min_distance)``, computes the distances of their
 adjacency rows and merges them back (the merge's dedup is the visited set).
-The JAX package runs the loop as a device ``while_loop``; here each "any
-query still active" test is one host sync.
+The JAX package runs the loop as a device ``while_loop``. Here dense float
+rows on a CUDA device run it in two hand-written kernels
+(``ops/search_kernels.py``), each query in its own loop, with no host sync;
+every other input takes the torch loop below, where each "any query still
+active" test is one host sync. The torch loop is the CPU path and the
+kernels' reference.
 """
 
 from __future__ import annotations
@@ -15,9 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pynndescent_torch.ops import init_kernels as ik
+from pynndescent_torch.ops import search_kernels as sk
 from pynndescent_torch.ops.neighbors import (NeighborState, make_neighbor_state, merge_candidates,
                                               take_smallest)
-from pynndescent_torch.ops.rp_trees import descend_tree
+from pynndescent_torch.ops.rp_trees import _tree_norms, descend_tree
 from pynndescent_torch.utils import profiling, rng
 
 _TREE_KEYS = ("a_pt", "b_pt", "child", "leaf_lo", "leaf_hi", "tree_order")
@@ -93,68 +99,136 @@ def _seed_beam(queries, X, tree, lo, hi, rand_ids, *, beam_width: int, leaf_max:
             extra = torch.empty((rows.numel(), 0), dtype=torch.int32, device=dev)
 
 
+def kernel_inputs(queries, X, adj, *, metric, metric_kwds, beam_width: int,
+                  expansions_per_step: int, tree_queries=None, ell=None) -> bool:
+    """Whether ``search_block`` may run on the search kernels
+    (``ops/search_kernels.py``), from what the inputs show, the device left
+    aside: dense float32 or bfloat16 rows with float32 queries, a gram-form
+    metric by its registry name with no keywords, no packed ELL rows, the
+    tree descended by the queries themselves (``tree_queries`` None: any
+    tree form), an int32 graph, and a beam width and ``expansions_per_step *
+    degree`` inside the kernels' shared-memory plan. Quantized codes and bit
+    rows are ``uint8`` and take the torch loop."""
+    return (X.dtype in (torch.float32, torch.bfloat16) and X.dim() == 2 and X.is_contiguous()
+            and 1 <= X.shape[0] < 2 ** 31 and queries.dtype == torch.float32
+            and queries.dim() == 2 and adj.dtype == torch.int32 and adj.dim() == 2
+            and isinstance(metric, str) and metric in ik.KERNEL_METRICS and not metric_kwds
+            and ell is None and tree_queries is None
+            and sk.fits(X.shape[1], beam_width, expansions_per_step, adj.shape[1]))
+
+
+def _top_k_order(width: int, candidates: int) -> bool:
+    """Whether ``merge_candidates`` selects by its top-k path (-0.0 before
+    +0.0) for a beam of ``width`` and that many candidate columns."""
+    return width <= 64 and 4 * width <= width + candidates
+
+
 def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
                  min_distance: float, beam_width: int, dist_rowwise, max_steps: int,
-                 leaf_max: int, expansions_per_step: int = 2, tree_queries=None, ell=None):
+                 leaf_max: int, expansions_per_step: int = 2, tree_queries=None, ell=None,
+                 metric=None, metric_kwds=None):
     """Search one block of queries (JAX search.py:49). ``tree`` is a dict
     from ``tree_to_device`` or None. ``tree_queries`` are the float queries
     for the tree descent when ``queries`` are encoded for a beam that runs on
     codes. ``ell`` = (query nnz, data nnz) for packed ELL rows, whose tree
-    margins go through ``sparse_dot``. Returns (idx [q, k], dist [q, k],
-    steps)."""
+    margins go through ``sparse_dot``. ``metric`` / ``metric_kwds`` name what
+    ``dist_rowwise`` computes where it is a registry metric (None otherwise):
+    on a CUDA device, inputs that ``kernel_inputs`` accepts run on the search
+    kernels, with no host sync. Returns (idx [q, k], dist [q, k], steps):
+    ``steps`` is the block's step count, an int from the torch loop, each
+    query's count (an int32 tensor [q], whose maximum is the block's) from
+    the kernels."""
     q = queries.shape[0]
     n = X.shape[0]
     dev = queries.device
+    E = expansions_per_step
+    kernel = X.device.type == "cuda" and kernel_inputs(
+        queries, X, adj, metric=metric, metric_kwds=metric_kwds, beam_width=beam_width,
+        expansions_per_step=E, tree_queries=tree_queries, ell=ell)
+    if kernel:
+        queries, adj = queries.contiguous(), adj.contiguous()
     with profiling.span("query/seed", dev) as sp:
-        lo = hi = None
+        lo = hi = coins = None
         if tree is not None:
             coins = torch.randint(0, 1 << 32, (q,), generator=gen, device=dev, dtype=torch.int64)
-            lo, hi = descend_tree(tree, X, queries if tree_queries is None else tree_queries,
-                                  coins, tree["depth"], tree["angular"], ell=ell)
+            if not kernel:
+                lo, hi = descend_tree(tree, X, queries if tree_queries is None else tree_queries,
+                                      coins, tree["depth"], tree["angular"], ell=ell)
         rand_ids = torch.randint(0, n, (q, k), generator=gen, device=dev, dtype=torch.int32)
-        state = _seed_beam(queries, X, tree, lo, hi, rand_ids, beam_width=beam_width,
-                           leaf_max=leaf_max, dist_rowwise=dist_rowwise, tally=sp)
+        if kernel:
+            sp.count(seed_passes=1)
+            norms = (_tree_norms(X, True) if tree is not None and tree["angular"]
+                     and tree.get("hyper") is None else None)
+            first = k + (leaf_max if tree is not None else 0)
+            state = sk.search_seed(queries, X, tree, coins, rand_ids, metric=metric,
+                                   beam_width=beam_width, norms=norms,
+                                   signed_zero=_top_k_order(beam_width, first))
+        else:
+            state = _seed_beam(queries, X, tree, lo, hi, rand_ids, beam_width=beam_width,
+                               leaf_max=leaf_max, dist_rowwise=dist_rowwise, tally=sp)
 
+    with profiling.span("query/beam", dev) as sp:
+        if kernel:
+            idx, dist, steps = sk.beam_search(
+                queries, X, adj, state, metric=metric, k=k,
+                epsilon=epsilon, min_distance=min_distance, max_steps=max_steps,
+                expansions_per_step=E, signed_zero=_top_k_order(beam_width, E * adj.shape[1]))
+            if sp is not profiling.NULL_SPAN:
+                sp.count(steps=steps.max(), queries=q, kernel_queries=q)
+            return idx, dist, steps
+        state, steps = _beam_loop(queries, X, adj, state, k=k, epsilon=epsilon,
+                                  min_distance=min_distance, dist_rowwise=dist_rowwise,
+                                  max_steps=max_steps, expansions_per_step=E)
+        sp.count(steps=steps, queries=q, kernel_queries=0)
+    return state.idx[:, :k], state.dist[:, :k], steps
+
+
+def _beam_loop(queries, X, adj, state: NeighborState, *, k: int, epsilon: float,
+               min_distance: float, dist_rowwise, max_steps: int, expansions_per_step: int):
+    """The beam's steps from ``state``, in lockstep, each "any query still
+    active" test a host sync: the torch loop of ``search_block`` and the
+    reference of the ``beam_search`` kernel. Returns (state, steps)."""
+    q = queries.shape[0]
     E = expansions_per_step
     deg = adj.shape[1]
     steps = 0
-    with profiling.span("query/beam", dev) as sp:
-        while steps < max_steps:
-            bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
-            if not bool((state.flag & (state.dist < bound[:, None])).any()):
-                break
-            masked = torch.where(state.flag, state.dist, torch.full_like(state.dist, float("inf")))
-            if E == 1:
-                pos = torch.argmin(masked, dim=1, keepdim=True)
-                vdist = torch.gather(masked, 1, pos)
-            else:
-                vdist, pos = take_smallest(masked, E)
-            do = vdist < bound[:, None]
-            v = torch.where(do, torch.gather(state.idx, 1, pos),
-                            torch.zeros_like(pos, dtype=torch.int32))
-            flag = state.flag.scatter(1, pos,
-                                      torch.where(do, False, torch.gather(state.flag, 1, pos)))
-            state = state._replace(flag=flag)
-            nbrs = adj[v.to(torch.int64)].reshape(q, E * deg)
-            nbrs = torch.where(do.repeat_interleave(deg, dim=1), nbrs, torch.full_like(nbrs, -1))
-            nd = dist_rowwise(queries, X[torch.clamp(nbrs, min=0).to(torch.int64)])
-            nd = torch.where(nbrs < 0, torch.full_like(nd, float("inf")), nd)
-            state, _ = merge_candidates(state, nbrs, nd)
-            steps += 1
-        sp.count(steps=steps, queries=q)
-    return state.idx[:, :k], state.dist[:, :k], steps
+    while steps < max_steps:
+        bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
+        if not bool((state.flag & (state.dist < bound[:, None])).any()):
+            break
+        masked = torch.where(state.flag, state.dist, torch.full_like(state.dist, float("inf")))
+        if E == 1:
+            pos = torch.argmin(masked, dim=1, keepdim=True)
+            vdist = torch.gather(masked, 1, pos)
+        else:
+            vdist, pos = take_smallest(masked, E)
+        do = vdist < bound[:, None]
+        v = torch.where(do, torch.gather(state.idx, 1, pos),
+                        torch.zeros_like(pos, dtype=torch.int32))
+        flag = state.flag.scatter(1, pos,
+                                  torch.where(do, False, torch.gather(state.flag, 1, pos)))
+        state = state._replace(flag=flag)
+        nbrs = adj[v.to(torch.int64)].reshape(q, E * deg)
+        nbrs = torch.where(do.repeat_interleave(deg, dim=1), nbrs, torch.full_like(nbrs, -1))
+        nd = dist_rowwise(queries, X[torch.clamp(nbrs, min=0).to(torch.int64)])
+        nd = torch.where(nbrs < 0, torch.full_like(nd, float("inf")), nd)
+        state, _ = merge_candidates(state, nbrs, nd)
+        steps += 1
+    return state, steps
 
 
 def search(queries, X, adj, tree, seed: int, *, k: int, epsilon: float = 0.1,
            min_distance: float = 0.0, beam_width: int | None = None, dist_rowwise=None,
            max_steps: int | None = None, batch_size: int = 8192, expansions_per_step: int = 2,
-           tree_queries=None, ell=None):
+           tree_queries=None, ell=None, metric=None, metric_kwds=None):
     """Search driver over blocks of ``batch_size`` queries (JAX
     search.py:142). ``X`` holds the candidates the beam gathers: float rows,
     ``uint8`` bit rows, packed ELL rows (with ``ell``, the query and data
     widths), or quantized codes (then ``tree_queries`` carries the float
     queries for the tree descent). ``tree`` is a dict from
-    ``tree_to_device`` or None. Returns (idx, dist) tensors on the queries'
+    ``tree_to_device`` or None. ``metric`` / ``metric_kwds``: the registry
+    name and keywords of what ``dist_rowwise`` computes, or None
+    (``search_block``). Returns (idx, dist) tensors on the queries'
     device."""
     nq = queries.shape[0]
     if beam_width is None:
@@ -179,7 +253,10 @@ def search(queries, X, adj, tree, seed: int, *, k: int, epsilon: float = 0.1,
             dist_rowwise=dist_rowwise, max_steps=int(max_steps), leaf_max=leaf_max,
             expansions_per_step=int(expansions_per_step),
             tree_queries=None if tree_queries is None else tree_queries[s:e], ell=ell,
+            metric=metric, metric_kwds=metric_kwds,
         )
         out_idx.append(idx)
         out_dist.append(dist)
+    if len(out_idx) == 1:
+        return out_idx[0], out_dist[0]
     return torch.cat(out_idx, 0), torch.cat(out_dist, 0)

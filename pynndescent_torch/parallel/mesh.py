@@ -605,7 +605,8 @@ def _tree_on(tree, device):
 def sharded_search(queries, X, adj, tree, seed: int, mesh: Mesh, *, k: int, epsilon=0.1,
                    min_distance=0.0, beam_width=None, dist_rowwise=None,
                    axis_name: str = "data", per_device_batch: int = 8192, tree_queries=None,
-                   ell=None, expansions_per_step: int = 2, replica=None):
+                   ell=None, expansions_per_step: int = 2, replica=None, metric=None,
+                   metric_kwds=None):
     """Query search with the batch sharded over the mesh (JAX :688): each
     shard runs the beam over its part of a chunk against its device's copy of
     the index (``tree`` as ``models.search.tree_to_device`` gives it, or
@@ -617,7 +618,9 @@ def sharded_search(queries, X, adj, tree, seed: int, mesh: Mesh, *, k: int, epsi
     for a caller that keeps its index's copies there and has closures whose
     tensors lie there (``NNDescent`` does). Without it, X, adj and tree are
     copied to each device for this call, and ``dist_rowwise`` serves every
-    device, so it must hold no tensor of one device."""
+    device, so it must hold no tensor of one device. ``metric`` /
+    ``metric_kwds`` name what ``dist_rowwise`` computes, as in
+    ``models.search.search``."""
     from pynndescent_torch.models import search as search_ops
 
     qaxis = mesh.axis_names[0] if len(mesh.axis_names) > 1 else _data_axis(mesh, axis_name)
@@ -650,7 +653,8 @@ def sharded_search(queries, X, adj, tree, seed: int, mesh: Mesh, *, k: int, epsi
                 _to(queries[lo:hi], dev), X_d, adj_d, tree_d,
                 rng.derive_seed(seed, c0, i), k=k, epsilon=epsilon, min_distance=min_distance,
                 beam_width=beam_width, dist_rowwise=fn, batch_size=hi - lo,
-                expansions_per_step=expansions_per_step, tree_queries=tq, ell=ell)
+                expansions_per_step=expansions_per_step, tree_queries=tq, ell=ell,
+                metric=metric, metric_kwds=metric_kwds)
             out_idx.append(_to(idx, lead))
             out_dist.append(_to(dist, lead))
     return torch.cat(out_idx), torch.cat(out_dist)

@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # X, starts, sizes, n_leaves, n, d, metric, out, stream
     "pynnd_leaf_allpairs": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -35,6 +35,15 @@ _SIGNATURES = {
     "pynnd_row_sqnorms": [_P, _I, _I, _I, _P, _P],
     # X, is_bf16, n, d, win, m, offset, metric, sq (or null), ids, dists, stream
     "pynnd_window_topm": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # X, is_bf16, n, d, Q, q, a_pt, b_pt, child, leaf_lo, leaf_hi, tree_order, norms,
+    # hyper, offset, coins, depth, rand_ids, n_rand, W, metric, signed_zero, idx, dist,
+    # flag, stream
+    "pynnd_search_seed": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # X, is_bf16, n, d, Q, q, adj, deg, seed idx, dist, flag, W, k, epsilon,
+    # min_distance, max_steps, E, metric, signed_zero, idx, dist, steps, stream
+    "pynnd_beam_search": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _F, _F, _I, _I,
+                          _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -127,4 +136,8 @@ def check(err: int, name: str):
 
 
 def stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current CUDA stream of ``device`` (a
+    ``torch.device``): torch's raw-stream call, a microsecond against some 15
+    for ``torch.cuda.current_stream``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

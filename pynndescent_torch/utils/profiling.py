@@ -69,7 +69,7 @@ class Span:
     finds the device past the span's end, and on a CPU device."""
 
     __slots__ = ("name", "id", "parent", "root", "start_ns", "end_ns", "counts",
-                 "device", "device_s", "_recorder", "_stream", "_events", "_range")
+                 "device", "device_s", "_recorder", "_stream", "_events", "_range", "_pending")
 
     def __init__(self, recorder, name, device):
         self._recorder = recorder
@@ -78,11 +78,23 @@ class Span:
         self.counts = {}
         self.device_s = None
         self._stream = self._events = None
+        self._pending = []
 
     def count(self, **n):
-        """Add integers to the span's counters."""
+        """Add integers to the span's counters. A 0-d tensor is added by
+        ``resolve``, once the device is past the span's end: inside an open
+        span on a CUDA device it is copied to pinned host memory on the
+        span's stream, with no sync."""
         for key, v in n.items():
-            self.counts[key] = self.counts.get(key, 0) + int(v)
+            if not isinstance(v, torch.Tensor):
+                self.counts[key] = self.counts.get(key, 0) + int(v)
+                continue
+            if v.is_cuda and self._stream is not None:
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host.copy_(v, non_blocking=True)
+            else:
+                host = v.detach().to("cpu", copy=True)
+            self._pending.append((key, host))
 
     def __enter__(self):
         rec = self._recorder
@@ -122,13 +134,17 @@ class Span:
         return False
 
     def resolve(self) -> bool:
-        """Read the device stretch from the span's events and let them go,
-        once the device has passed its end (no wait). True when the span
-        holds no events any more."""
+        """Read the device stretch from the span's events, and the counters
+        its device tensors gave, and let them go, once the device has passed
+        its end (no wait). True when the span holds no events any more."""
         if self._events is not None and self._events[1].query():
             start, end = self._events
             self.device_s = start.elapsed_time(end) * 1e-3
             self._events = None
+        if self._events is None and self._pending:
+            for key, host in self._pending:
+                self.counts[key] = self.counts.get(key, 0) + int(host)
+            self._pending = []
         return self._events is None
 
     def __repr__(self):

@@ -11,6 +11,8 @@ d <= 24 the absolute errors are ~1e-5, so rtol/atol 2e-4 (leaf) and 1e-4
 (window); window ids must agree except at near-ties (> 99.9%).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -380,3 +382,230 @@ def test_mesh_over_two_cards_searches_each_cards_copy(cuda_device, route):
     assert {str(key[0]) for key in two._mesh_replicas} == {"cuda:0", "cuda:1"}
     assert recall(qi, truth) >= recall(one.query(Q, k=10, epsilon=0.2)[0], truth) - 0.02
     np.testing.assert_allclose(qd, exact(qi, np.arange(len(qi))), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the search kernels (csrc/beam_search.cu) against the torch loop they
+# replace: ``search_block`` with the metric's name runs the kernels, without
+# it the torch loop, from the same generator
+# ---------------------------------------------------------------------------
+
+
+def _search_case(seed, n_pts=3000, d=32, deg=12, big_leaf=False, use_tree=True):
+    """Small-integer rows and queries (every product and sum exact in fp32,
+    and every value exact in bf16, so both paths compute the same bits and
+    ties are many), a search graph with holes, and a search tree: leaves of
+    up to 30 rows, or leaves far past the first seeding pass's 64 members
+    (``big_leaf``)."""
+    rs = np.random.RandomState(seed)
+    X = rs.randint(-3, 4, (n_pts, d)).astype(np.float32)
+    adj = rs.randint(0, n_pts, (n_pts, deg)).astype(np.int32)
+    adj[rs.rand(n_pts, deg) < 0.1] = -1
+    tree = None
+    if use_tree:
+        leaf = 600 if big_leaf else 30
+        arrays = tr.flatten_search_tree(t(X), seed, leaf_size=leaf,
+                                        max_depth=tr.forest_depth(n_pts, leaf)).to_arrays()
+        arrays["leaf_size"] = 30  # the first pass takes 64 members of a leaf
+        tree = arrays
+    return X, adj, tree, rs
+
+
+def _both_paths(cuda_device, X, Q, adj, tree, *, metric, dtype, beam_width, E, k=10, seed=5):
+    from pynndescent_torch.models import search as ts
+    from pynndescent_torch.ops import nndescent as tnd
+    from pynndescent_torch.ops import search_kernels as sk
+    from pynndescent_torch.utils import rng
+
+    Xd = t(X).to(cuda_device, dtype)
+    Qd, adjd = t(Q).to(cuda_device), t(adj).to(cuda_device)
+    tree_d = None if tree is None else ts.tree_to_device(tree, cuda_device)
+    leaf_max = 0 if tree is None else min(-(-2 * tree_d["leaf_size"] // 64) * 64, X.shape[0])
+    kw = dict(k=k, epsilon=0.2, min_distance=0.0, beam_width=beam_width, max_steps=X.shape[0],
+              leaf_max=leaf_max, expansions_per_step=E,
+              dist_rowwise=tnd._resolve_rowwise_metric(
+                  metric, cast_candidates_f32=dtype == torch.bfloat16))
+    sk.reset_launch_counts()
+    got = ts.search_block(Qd, Xd, adjd, tree_d, rng.generator(seed, cuda_device), metric=metric,
+                          **kw)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {"search_seed": 1, "beam_search": 1}
+    want = ts.search_block(Qd, Xd, adjd, tree_d, rng.generator(seed, cuda_device), **kw)
+    assert sk.LAUNCHES == {"search_seed": 1, "beam_search": 1}
+    return got, want
+
+
+# (E, beam width, dtype, metric, tree, queries)
+SEARCH_PARITY_CASES = [
+    (2, 48, torch.float32, "sqeuclidean", "tree", 1000),
+    (1, 48, torch.float32, "sqeuclidean", "tree", 1000),
+    (2, 256, torch.float32, "sqeuclidean", "tree", 1000),
+    (2, 48, torch.bfloat16, "sqeuclidean", "tree", 1000),
+    (2, 48, torch.float32, "euclidean", "tree", 1000),
+    (2, 48, torch.float32, "sqeuclidean", "big_leaf", 1000),
+    (1, 256, torch.bfloat16, "euclidean", "big_leaf", 1000),
+    (2, 48, torch.bfloat16, "sqeuclidean", "none", 1000),
+    (1, 256, torch.float32, "euclidean", "none", 1000),
+    (2, 48, torch.float32, "sqeuclidean", "tree", 1),
+    (1, 256, torch.bfloat16, "sqeuclidean", "big_leaf", 1),
+    (2, 48, torch.bfloat16, "euclidean", "none", 1),
+]
+
+
+@pytest.mark.parametrize("E,width,dtype,metric,tree_kind,nq", SEARCH_PARITY_CASES)
+def test_search_kernels_equal_the_torch_loop(cuda_device, E, width, dtype, metric, tree_kind, nq):
+    """Exact parity on rows whose sums are exact: the same ids, the same
+    distances and, for each query, the step count the torch loop gives it
+    (the block's count is the largest; a batch of one has its query's)."""
+    X, adj, tree, rs = _search_case(11 + E + width, big_leaf=tree_kind == "big_leaf",
+                                    use_tree=tree_kind != "none")
+    if tree_kind == "big_leaf":
+        assert int(np.max(tree["leaf_hi"] - tree["leaf_lo"])) > 64
+    Q = rs.randint(-3, 4, (nq, X.shape[1])).astype(np.float32)
+    (gi, gd, gs), (wi, wd, ws) = _both_paths(cuda_device, X, Q, adj, tree, metric=metric,
+                                             dtype=dtype, beam_width=width, E=E)
+    np.testing.assert_array_equal(n(gi), n(wi))
+    np.testing.assert_array_equal(n(gd), n(wd))
+    assert int(gs.max()) == ws and ws > 0
+    if nq == 1:
+        assert int(gs[0]) == ws
+
+
+def test_beam_kernel_equals_the_torch_loop_from_a_given_state(cuda_device):
+    """From a sorted seed state whose distances are all one too large, every
+    id the beam meets again beats its incumbent, which the merge must drop,
+    as the torch loop does."""
+    from pynndescent_torch.models import search as ts
+    from pynndescent_torch.ops import nndescent as tnd
+    from pynndescent_torch.ops import search_kernels as sk
+
+    X, adj, tree, rs = _search_case(21)
+    Xd, adjd = t(X).to(cuda_device), t(adj).to(cuda_device)
+    Q = t(rs.randint(-3, 4, (500, X.shape[1])).astype(np.float32)).to(cuda_device)
+    rand = torch.randint(0, X.shape[0], (500, 10), dtype=torch.int32, device=cuda_device)
+    seed = sk.search_seed(Q, Xd, None, None, rand, metric="sqeuclidean", beam_width=48,
+                          signed_zero=False)
+    state = seed._replace(dist=seed.dist + 1.0)
+    kw = dict(k=10, epsilon=0.2, min_distance=0.0, max_steps=3000, expansions_per_step=2)
+    gi, gd, gs = sk.beam_search(Q, Xd, adjd, state, metric="sqeuclidean", signed_zero=False, **kw)
+    want, ws = ts._beam_loop(Q, Xd, adjd, state,
+                             dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"), **kw)
+    np.testing.assert_array_equal(n(gi), n(want.idx[:, :10]))
+    np.testing.assert_array_equal(n(gd), n(want.dist[:, :10]))
+    assert int(gs.max()) == ws
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "cosine"])
+def test_search_kernels_on_random_rows_track_the_torch_loop(cuda_device, metric):
+    """20k x 784 blobs, bf16 search copy: the kernels' ids equal the torch
+    loop's on at least 99% of the queries and their recall is within 0.005
+    of it (the two sum in other orders; cosine's roots round apart too)."""
+    from pynndescent_torch.models import search as ts
+    from pynndescent_torch.ops import nndescent as tnd
+    from pynndescent_torch.ops import search_kernels as sk
+
+    data = clustered(20500, 784, seed=12, n_centers=200)
+    train, queries = data[:20000], data[20000:]
+    index = NNDescent(train, metric="euclidean" if metric == "sqeuclidean" else "cosine",
+                      n_neighbors=10, random_state=42, device="cuda")
+    index.prepare()
+    q = index._queries_to_device(queries)
+    X = index._X_search
+    assert X.dtype == torch.bfloat16
+    name = index._internal_metric
+    kw = dict(k=15, epsilon=0.2, min_distance=index._min_distance, beam_width=48,
+              dist_rowwise=tnd._resolve_rowwise_metric(name, cast_candidates_f32=True))
+    args = (q, X, index._search_graph, index._tree_dev, 7)
+    sk.reset_launch_counts()
+    gi, _ = ts.search(*args, metric=name, **kw)
+    wi, _ = ts.search(*args, **kw)
+    assert sk.LAUNCHES == {"search_seed": 1, "beam_search": 1}
+    gi, wi = n(gi), n(wi)
+    assert np.mean(np.all(gi == wi, axis=1)) >= 0.99
+    A, B = t(train).to(cuda_device), t(queries).to(cuda_device)
+    if metric == "cosine":
+        A, B = A / A.norm(dim=1, keepdim=True), B / B.norm(dim=1, keepdim=True)
+    truth = n(torch.topk(torch.cdist(B, A, compute_mode="donot_use_mm_for_euclid_dist"), 10,
+                         largest=False).indices)
+    assert abs(recall(gi[:, :10], truth) - recall(wi[:, :10], truth)) <= 0.005
+
+
+def test_search_kernels_launch_once_a_block(cuda_device):
+    from pynndescent_torch.models import search as ts
+    from pynndescent_torch.ops import nndescent as tnd
+    from pynndescent_torch.ops import search_kernels as sk
+
+    X, adj, tree, rs = _search_case(3)
+    Q = rs.randint(-3, 4, (1000, X.shape[1])).astype(np.float32)
+    sk.reset_launch_counts()
+    idx, dist = ts.search(t(Q).to(cuda_device), t(X).to(cuda_device), t(adj).to(cuda_device),
+                          ts.tree_to_device(tree, cuda_device), 9, k=10, epsilon=0.2,
+                          dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"),
+                          batch_size=300, metric="sqeuclidean")
+    assert sk.LAUNCHES == {"search_seed": 4, "beam_search": 4}
+    assert idx.shape == (1000, 10) and bool((idx >= 0).all())
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_search_kernels_add_no_host_sync(cuda_device, traced):
+    """``search_block`` on the kernel path under sync-debug "error" raises
+    nothing, also inside a profiler session, where the ``query/beam`` span
+    counts the steps from a device tensor, read once the device is past it."""
+    from pynndescent_torch.models import search as ts
+    from pynndescent_torch.ops import nndescent as tnd
+    from pynndescent_torch.utils import profiling, rng
+
+    X, adj, tree, rs = _search_case(4)
+    Q = t(rs.randint(-3, 4, (64, X.shape[1])).astype(np.float32)).to(cuda_device)
+    args = (Q, t(X).to(cuda_device), t(adj).to(cuda_device), ts.tree_to_device(tree, cuda_device))
+    kw = dict(k=10, epsilon=0.2, min_distance=0.0, beam_width=48, max_steps=3000, leaf_max=64,
+              dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"), metric="sqeuclidean")
+    ts.search_block(*args, rng.generator(1, cuda_device), **kw)  # loads the library
+    torch.cuda.synchronize()
+    profiling.clear()
+    session = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+               if traced else contextlib.nullcontext())
+    with session:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, steps = ts.search_block(*args, rng.generator(1, cuda_device), **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    spans = {s.name: s for s in profiling.spans()}
+    profiling.clear()
+    if traced:
+        assert spans["query/beam"].counts == {"steps": int(steps.max()), "queries": 64,
+                                              "kernel_queries": 64}
+        assert spans["query/seed"].counts == {"seed_passes": 1}
+
+
+def test_search_kernel_wrappers_reject_bad_input(cuda_device):
+    from pynndescent_torch.ops import search_kernels as sk
+
+    X = torch.zeros((100, 16), device=cuda_device)
+    Q = torch.zeros((4, 16), device=cuda_device)
+    rand = torch.zeros((4, 10), dtype=torch.int32, device=cuda_device)
+    kw = dict(metric="sqeuclidean", beam_width=48, signed_zero=False)
+    state = sk.search_seed(Q, X, None, None, rand, **kw)
+    adj = torch.zeros((100, 8), dtype=torch.int32, device=cuda_device)
+    bkw = dict(metric="sqeuclidean", k=10, epsilon=0.1, min_distance=0.0, max_steps=10,
+               expansions_per_step=2, signed_zero=False)
+    sk.beam_search(Q, X, adj, state, **bkw)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.search_seed(Q.cpu(), X.cpu(), None, None, rand.cpu(), **kw)
+    with pytest.raises(ValueError, match="queries"):
+        sk.search_seed(Q.cpu(), X, None, None, rand, **kw)
+    with pytest.raises(ValueError, match="X must be"):
+        sk.search_seed(Q, X.double(), None, None, rand, **kw)
+    with pytest.raises(ValueError, match="X must be"):
+        sk.search_seed(Q, torch.zeros((16, 100), device=cuda_device).t(), None, None, rand, **kw)
+    with pytest.raises(ValueError, match="rand_ids"):
+        sk.search_seed(Q, X, None, None, rand.long(), **kw)
+    with pytest.raises(ValueError, match="adj"):
+        sk.beam_search(Q, X, adj[:, ::2], state, **bkw)
+    with pytest.raises(ValueError, match="state.flag"):
+        sk.beam_search(Q, X, adj, state._replace(flag=state.flag.to(torch.uint8)), **bkw)
+    with pytest.raises(ValueError, match="shared-memory"):
+        sk.beam_search(Q, X, torch.zeros((100, 600), dtype=torch.int32, device=cuda_device),
+                       state, **bkw)

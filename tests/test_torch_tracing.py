@@ -150,7 +150,8 @@ def test_beam_steps_are_what_search_block_returns(leaf_max, tile, passes, monkey
             leaf_max=leaf_max)
     by_name = {s.name: s for s in profiling.spans()}
     profiling.clear()
-    assert by_name["query/beam"].counts == {"steps": steps, "queries": 4} and steps > 0
+    assert by_name["query/beam"].counts == {"steps": steps, "queries": 4, "kernel_queries": 0}
+    assert steps > 0
     assert by_name["query/seed"].counts == {"seed_passes": passes}
 
 
@@ -205,11 +206,13 @@ def test_a_span_closes_when_its_block_raises():
 
 
 @pytest.mark.cuda
-def test_spans_carry_device_stretches_under_a_cuda_only_session(cuda_device, data):
+def test_spans_carry_device_stretches_under_a_cuda_only_session(cuda_device, data, monkeypatch):
     """Under a CUDA-only session, as the benchmark's traced window runs one,
     the flag reads true, spans carry device stretches, a kernel launched and
     synchronised inside a span lies inside the span's host interval within
-    50 us, and a build's descent children add up to its descent."""
+    50 us, a build's descent children add up to its descent, a query call on
+    the torch loop is tiled by its children, and a query call on the search
+    kernels by its children and the host's gaps between them."""
     x = torch.randn(2048, 2048, device=cuda_device)
     torch.cuda.synchronize()
     profiling.clear()
@@ -232,15 +235,35 @@ def test_spans_carry_device_stretches_under_a_cuda_only_session(cuda_device, dat
         assert ev.start_ns() + ev.duration_ns() <= probe.end_ns + 50_000
 
     profiling.clear()
-    with torch.profiler.profile(activities=cuda_only):
-        _run(*data, device=cuda_device, profile=True)
-    torch.cuda.synchronize()
+    with monkeypatch.context() as patch:
+        # the query's search on the torch loop: its children tile the call
+        patch.setattr(ts, "kernel_inputs", lambda *args, **kw: False)
+        with torch.profiler.profile(activities=cuda_only):
+            index, _ = _run(*data, device=cuda_device, profile=True)
+        torch.cuda.synchronize()
     recorded = profiling.spans()
     profiling.clear()
     assert all(s.device_s is not None and s.device_s >= 0 for s in recorded)
     by_name = {s.name: s for s in recorded}
+    assert by_name["query/beam"].counts["kernel_queries"] == 0
     parts = sum(s.device_s for s in recorded if s.name.startswith("descent/"))
     assert parts == pytest.approx(by_name["phase/descent"].device_s, rel=0.1)
     calls = [s for s in recorded if s.name == "phase/query"]
     children = sum(s.device_s for s in recorded if s.parent == calls[0].id)
     assert children == pytest.approx(calls[0].device_s, rel=0.1)
+
+    # on the search kernels the call is some 50 times shorter and the spans'
+    # own host cost a fifth of it: the device waits in the host's gaps
+    # between the children, which tile the call with them
+    with torch.profiler.profile(activities=cuda_only):
+        index.query(data[1], k=10, epsilon=0.2)
+    torch.cuda.synchronize()
+    recorded = profiling.spans()
+    profiling.clear()
+    assert {s.name: s for s in recorded}["query/beam"].counts["kernel_queries"] == len(data[1])
+    call = next(s for s in recorded if s.name == "phase/query")
+    kids = sorted((s for s in recorded if s.parent == call.id), key=lambda s: s.start_ns)
+    children = sum(s.device_s for s in kids)
+    edges = [call.start_ns] + [t for s in kids for t in (s.start_ns, s.end_ns)] + [call.end_ns]
+    gaps_s = 1e-9 * sum(b - a for a, b in zip(edges[::2], edges[1::2]))
+    assert children + gaps_s == pytest.approx(call.device_s, rel=0.1)

@@ -166,7 +166,19 @@ def _l2_normalize_csr(csr):
 
 def _rerank_rows(dist_rowwise, queries, cand_idx, X, k):
     """Exact distances of each query row to its candidate ids (+inf at -1),
-    sorted ascending (stable); the k smallest as (ids, distances)."""
+    sorted ascending (stable); the k smallest as (ids, distances). Rows go
+    in blocks whose gathered candidates hold at most
+    ``distances._BROADCAST_TILE_ELEMS`` elements (packed ELL rows are
+    ``2 * nnz_max`` wide, so a fixed row count could gather tens of GB):
+    one tile of ``distances.pairwise_rowwise``, so each block is the row
+    chunk that it would compute from the whole gather, and the answers keep
+    their bits (the device's reductions take their order from a call's
+    shape)."""
+    rows = max(1, dst._BROADCAST_TILE_ELEMS // max(cand_idx.shape[1] * X.shape[1], 1))
+    if rows < cand_idx.shape[0]:
+        parts = [_rerank_rows(dist_rowwise, queries[s:s + rows], cand_idx[s:s + rows], X, k)
+                 for s in range(0, cand_idx.shape[0], rows)]
+        return tuple(torch.cat(p) for p in zip(*parts))
     d = dist_rowwise(queries, X[torch.clamp(cand_idx, min=0).to(torch.int64)])
     d = torch.where(cand_idx < 0, torch.full_like(d, float("inf")), d)
     nd, pos = torch.sort(d, dim=-1, stable=True)
@@ -398,11 +410,13 @@ class NNDescent:
         if sk is None:
             self._ell = {"nnz": nnz_max, "n_features": csr.shape[1]}
             return sparse_ell.csr_to_ell_packed(csr, nnz_max)
-        self._ell_store = sparse_ell.csr_to_ell_packed(csr, nnz_max)
-        self._sketch = {"kind": sk["kind"], "encode": sk.get("encode"), "h": sk["h"],
-                        "internal": sk["internal"], "binarize": sk["binarize"],
-                        "seed": _SKETCH_SEED, "nnz": nnz_max, "n_features": csr.shape[1]}
-        return sketch_ops.sketch_rows(csr, self._sketch, _SKETCH_SEED, self.device)
+        with profiling.span("ingest/sketch", self.device) as sp:
+            sp.count(rows=csr.shape[0], stored=csr.nnz, nnz_max=nnz_max, h=sk["h"])
+            self._ell_store = sparse_ell.csr_to_ell_packed(csr, nnz_max)
+            self._sketch = {"kind": sk["kind"], "encode": sk.get("encode"), "h": sk["h"],
+                            "internal": sk["internal"], "binarize": sk["binarize"],
+                            "seed": _SKETCH_SEED, "nnz": nnz_max, "n_features": csr.shape[1]}
+            return sketch_ops.sketch_rows(csr, self._sketch, _SKETCH_SEED, self.device)
 
     def _ell_nnz(self):
         return self._ell["nnz"] if self._ell is not None else None
@@ -563,16 +577,27 @@ class NNDescent:
         """The sketch route's graph as the API shows it: each row of the
         internal graph (``_build_k`` wide, ranked by sketch distance) reranked
         by the true metric from the packed rows, the n_neighbors closest
-        kept; computed once, in blocks of 16,384 rows."""
+        kept; computed once, in blocks of 16,384 rows, each in the tiles of
+        ``_rerank_rows`` (the row chunks that the distances' bits follow).
+        The span ``graph/exact`` counts the ``pairs`` reranked, the
+        ``stored`` entries of both rows of each and the ``padded`` width the
+        sorts handle, ``pairs * 2 * nnz_max``."""
         if self._graph_exact is None:
-            idx = self._neighbor_graph[0]
-            nnz = self._sketch["nnz"]
-            fn = nnd_ops._resolve_rowwise_metric(self._make_ell_closure(nnz, nnz, self.metric))
-            ell = self._ell_store_device()
-            k = min(self.n_neighbors, idx.shape[1])
-            parts = [_rerank_rows(fn, ell[s:s + 16384], idx[s:s + 16384], ell, k)
-                     for s in range(0, idx.shape[0], 16384)]
-            self._graph_exact = tuple(torch.cat(p).cpu().numpy() for p in zip(*parts))
+            with profiling.span("graph/exact", self.device) as sp:
+                idx = self._neighbor_graph[0]
+                nnz = self._sketch["nnz"]
+                fn = nnd_ops._resolve_rowwise_metric(
+                    self._make_ell_closure(nnz, nnz, self.metric))
+                ell = self._ell_store_device()
+                if sp is not profiling.NULL_SPAN:
+                    stored = torch.sum(ell[:, :nnz] >= 0, dim=1)
+                    sp.count(pairs=idx.numel(), padded=idx.numel() * 2 * nnz,
+                             stored=stored.sum() * idx.shape[1]
+                             + stored[torch.clamp(idx, min=0).to(torch.int64)].sum())
+                k = min(self.n_neighbors, idx.shape[1])
+                parts = [_rerank_rows(fn, ell[s:s + 16384], idx[s:s + 16384], ell, k)
+                         for s in range(0, idx.shape[0], 16384)]
+                self._graph_exact = tuple(torch.cat(p).cpu().numpy() for p in zip(*parts))
         return self._graph_exact
 
     def _ot_distances(self, queries, cand_idx):

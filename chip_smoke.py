@@ -29,15 +29,17 @@ non-zero:
 8. quantized: ``quantization="uint8"``, ``"uint4"`` and ``"binary"`` on the
    100k x 128 data beside the unquantized index;
 9. metrics: ``manhattan`` (a broadcast metric) and ``bit_hamming`` (packed
-   ``uint8`` rows) builds, which must launch no kernel;
+   ``uint8`` rows) builds, which must launch no kernel (``join_dists``
+   included);
 10. sparse_cosine: ``bench.py``'s 50k x 100k TF-IDF corpus (CSR, 64 stored
     entries a row) under cosine: the hash sketch, the exact ELL rerank, a
     second build that must give the same graph;
 11. sparse_jaccard: the same corpus under jaccard: the sign minhash;
 12. sparse_ell: the same corpus under cosine with the sketch off: the exact
     padded-ELL route, and the share of its descent spent in tagged sorts.
-    Phases 10-12 launch no kernel; every distance they return must equal the
-    exact scipy value;
+    Phases 10-12 launch neither the leaf nor the window kernel (the
+    sketch's join takes ``join_dists``); every distance they return must
+    equal the exact scipy value;
 13. ot: 20,000 clustered 32-bin histograms, 1,000 queries, under
     ``kantorovich`` with the cost |i - j| (every returned distance against the
     closed form of the 1-D Wasserstein distance, recall against its
@@ -52,14 +54,22 @@ non-zero:
     must equal where it misses the floor); ``update()`` with 100,000 fresh
     rows and a pickle round trip with identical answers; then
     ``shard_data=True`` on the same cell.
-    Phases 13-14 launch no kernel (neither package has one on these paths);
+    Phases 13-14 launch neither the leaf nor the window kernel (neither
+    package has one on these paths); the mesh's gather inits and joins take
+    ``join_dists`` where a shard holds X, as every gather of candidates does;
 15. search: the benchmark's ``fmnist784.query-online`` index (60k x 784, the
     bfloat16 search copy, beam 48, E 2, degree 15) queried by the main path,
     whose ``search_seed`` and ``beam_search`` launches are counted; each
     kernel held to the torch loop on the same seeded inputs, bit for bit on
     small-integer rows over the index's tree and graph, within tolerance on
     its own rows; their times at one query and at a block of 8,192 beside
-    the torch loop's and their byte bound.
+    the torch loop's and their byte bound;
+16. join: the descent's candidate-distance kernel ``join_dists`` against its
+    plain version (the gathered tile and ``pairwise_rowwise``) at the three
+    build cells' block shapes (fmnist 1,605 x 320 x 784 fp32, sift 4,915 x
+    320 x 128 fp32, the text sketch 512 x 456 x 4,096 bf16) and at d = 25:
+    the widest distance difference over its scale, the kernel's time beside
+    its byte bound and the plain version's time.
 
 The last two lines are a JSON object describing the kernels and, last,
 ``{"ok": true, "device": {...}}``. Recall is measured against an exact fp32
@@ -593,10 +603,37 @@ def _check_window(torch, state, errs, Xw_t):
     del Xp, tiles
 
 
+def _reset_launches():
+    """Set the gram kernels' launch counts to 0: the init kernels' and
+    ``join_dists``."""
+    from pynndescent_torch.ops import init_kernels as ik
+    from pynndescent_torch.ops import join_kernels as jk
+
+    ik.reset_launch_counts()
+    jk.reset_launch_counts()
+
+
+def _launches():
+    """The gram kernels' launch counts since ``_reset_launches``."""
+    from pynndescent_torch.ops import init_kernels as ik
+    from pynndescent_torch.ops import join_kernels as jk
+
+    return {**ik.LAUNCHES, **jk.LAUNCHES}
+
+
 def _add_path_launches(state, launches):
-    state.setdefault("path_launches", dict.fromkeys(launches, 0))
+    totals = state.setdefault("path_launches", {})
     for k, v in launches.items():
-        state["path_launches"][k] += v
+        totals[k] = totals.get(k, 0) + v
+
+
+def _join_launched(tag, launches, expected: bool):
+    """``join_dists`` must have measured the build's candidates where its
+    route applies (a gram-form metric on float32 / bfloat16 rows a part
+    holds), and must not have launched elsewhere."""
+    if (launches["join_dists"] > 0) != expected:
+        raise AssertionError(f"{tag}: join_dists launched {launches['join_dists']} times, "
+                             f"expected {'some' if expected else 'none'}")
 
 
 def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_recall,
@@ -608,11 +645,10 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
     index comes back too, beside the epsilon that held. ``oracle`` (a dict)
     receives the sampled rows, their exact neighbors and the built graph."""
     from pynndescent_torch import NNDescent
-    from pynndescent_torch.ops import init_kernels as ik
 
     dev = torch.device("cuda")
     q_dev = torch.from_numpy(queries).to(dev)
-    ik.reset_launch_counts()  # counts of the main path's run only
+    _reset_launches()  # counts of the main path's run only
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = NNDescent(train, metric=metric, n_neighbors=10, random_state=42, device="cuda",
@@ -623,7 +659,7 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
     t0 = time.perf_counter()
     qi, _ = index.query(q_dev, k=10, epsilon=epsilon)
     query_s = time.perf_counter() - t0
-    launches = dict(ik.LAUNCHES)
+    launches = _launches()
 
     sample = np.random.RandomState(0).choice(len(queries), N_SAMPLE, replace=False)
     X = torch.from_numpy(train).to(dev)
@@ -662,6 +698,7 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
     if launches["leaf_allpairs"] < index.n_trees:
         raise AssertionError(f"{tag}: leaf_allpairs launched {launches['leaf_allpairs']} times "
                              f"for {index.n_trees} trees")
+    _join_launched(tag, launches, True)
     _add_path_launches(state, launches)
     if keep:
         return launches, index, epsilon, build_s
@@ -722,7 +759,6 @@ def phase_mnist784(torch, state):
     import warnings
 
     from pynndescent_torch import NNDescent
-    from pynndescent_torch.ops import init_kernels as ik
 
     dev = torch.device("cuda")
     card = state["card"]
@@ -736,13 +772,14 @@ def phase_mnist784(torch, state):
 
     # update() with 7,000 fresh rows: a warm state and a fresh forest of
     # n_trees_after_update trees through the leaf kernel
-    ik.reset_launch_counts()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index.update(xs_fresh=fresh)
     torch.cuda.synchronize()
     update_s = time.perf_counter() - t0
-    up_launches = dict(ik.LAUNCHES)
+    up_launches = _launches()
+    _join_launched("mnist784 update", up_launches, True)
     _add_path_launches(state, up_launches)
     if up_launches["leaf_allpairs"] != index.n_trees_after_update or up_launches["window_topm"]:
         raise AssertionError(f"mnist784 update: launches {up_launches}, expected leaf_allpairs "
@@ -870,7 +907,6 @@ def phase_metrics(torch, state):
     """Builds outside the kernels' gate: a broadcast metric on float rows
     and a bit metric on packed uint8 rows. Neither may launch a kernel."""
     from pynndescent_torch import NNDescent
-    from pynndescent_torch.ops import init_kernels as ik
 
     dev = torch.device("cuda")
     card = state["card"]
@@ -878,7 +914,7 @@ def phase_metrics(torch, state):
     gs_dev = torch.from_numpy(gs).to(dev)
 
     def build(data, metric):
-        ik.reset_launch_counts()
+        _reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -887,7 +923,7 @@ def phase_metrics(torch, state):
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        launches = dict(ik.LAUNCHES)
+        launches = _launches()
         if any(launches.values()):
             raise AssertionError(f"{metric} build launched a gram kernel: {launches}")
         return index, build_s, peak, launches
@@ -1044,13 +1080,14 @@ def _sparse_build_and_query(torch, state, tag, metric, seed, route, **kw):
     sampled queries against the exact oracle, the distances of those queries
     and of 1,000 sampled graph rows against the exact scipy values. The
     launch counts are set to 0 before the build and read after the queries:
-    no kernel lies on these paths. Returns (index, graph ids)."""
+    neither the leaf nor the window kernel lies on these paths; the sketch's
+    gather inits and join take ``join_dists``, the exact ELL route does not.
+    Returns (index, graph ids)."""
     from pynndescent_torch import NNDescent
-    from pynndescent_torch.ops import init_kernels as ik
 
     train, queries = _tfidf(state)
     card = state["card"]
-    ik.reset_launch_counts()
+    _reset_launches()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1069,10 +1106,11 @@ def _sparse_build_and_query(torch, state, tag, metric, seed, route, **kw):
         t0 = time.perf_counter()
         qi, qd = index.query(queries, k=10, epsilon=0.3)
         qps = max(qps, queries.shape[0] / (time.perf_counter() - t0))
-    launches = dict(ik.LAUNCHES)
+    launches = _launches()
     _add_path_launches(state, launches)
     if launches["leaf_allpairs"] or launches["window_topm"]:
         raise AssertionError(f"{tag}: a kernel launched on a path that has none: {launches}")
+    _join_launched(tag, launches, route != "exact ELL")
 
     sample = np.random.RandomState(0).choice(queries.shape[0], 200, replace=False)
     D = sparse_distance_matrix(queries[sample], train, metric)
@@ -1094,8 +1132,8 @@ def _sparse_build_and_query(torch, state, tag, metric, seed, route, **kw):
         f"strict {g_strict:.4f} tie-tolerant {g_tol:.4f}, search graph mean degree "
         f"{degree:.2f}, peak device memory {peak} bytes, "
         f"launches leaf_allpairs {launches['leaf_allpairs']} window_topm "
-        f"{launches['window_topm']}; ids in range, rows free of duplicates, max |d - exact| "
-        f"{q_err:.3g} (200 queries) / {g_err:.3g} ({N_SAMPLE} graph rows) | {card}")
+        f"{launches['window_topm']} join_dists {launches['join_dists']}; ids in range, rows "
+        f"free of duplicates, max |d - exact| {q_err:.3g} (200 queries) / {g_err:.3g} ({N_SAMPLE} graph rows) | {card}")
     if strict < SPARSE_FLOOR:
         # not a failure: the reading at a wider search says whether the
         # search budget or the graph holds recall back
@@ -1383,7 +1421,7 @@ def phase_mesh(torch, state):
                       g_truth=exact_knn(torch, X, X[torch.from_numpy(gs).to(dev)], 10))
     for d in dict.fromkeys(devices):
         torch.cuda.reset_peak_memory_stats(d)
-    ik.reset_launch_counts()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = NNDescent(train, n_neighbors=10, random_state=42, devices=devices, profile=True)
@@ -1393,8 +1431,10 @@ def phase_mesh(torch, state):
     t0 = time.perf_counter()
     qi, qd = index.query(q_dev, k=10, epsilon=0.25)
     query_s = time.perf_counter() - t0
-    launches = dict(ik.LAUNCHES)
-    _no_launches("14 mesh", launches)
+    launches = _launches()
+    _no_launches("14 mesh", dict(ik.LAUNCHES))
+    _join_launched("14 mesh", launches, True)  # each shard holds X
+    _add_path_launches(state, launches)
     gi, _ = index.neighbor_graph
     q_rec = recall(qi[oracle["sample"]], oracle["truth"])
     g_rec = recall(gi[oracle["gs"]], oracle["g_truth"])
@@ -1444,13 +1484,16 @@ def phase_mesh(torch, state):
     del no_loc, gather
 
     # update() with 10% fresh rows over the mesh, then a pickle round trip
-    ik.reset_launch_counts()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index.update(xs_fresh=fresh)
     torch.cuda.synchronize()
     update_s = time.perf_counter() - t0
     _no_launches("14 mesh update", dict(ik.LAUNCHES))
+    launches = _launches()
+    _join_launched("14 mesh update", launches, True)
+    _add_path_launches(state, launches)
     qf, _ = index.query(torch.from_numpy(fresh[:N_SAMPLE]).to(dev), k=10, epsilon=0.25)
     self_found = float(np.mean((qf == (len(train) + np.arange(N_SAMPLE))[:, None]).any(1)))
     want = index.query(q_dev, k=10, epsilon=0.25)
@@ -1473,7 +1516,7 @@ def phase_mesh(torch, state):
     # rows through the ring
     for d in dict.fromkeys(devices):
         torch.cuda.reset_peak_memory_stats(d)
-    ik.reset_launch_counts()
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = NNDescent(train, n_neighbors=10, random_state=42, devices=devices, shard_data=True,
@@ -1482,7 +1525,10 @@ def phase_mesh(torch, state):
     build_s = time.perf_counter() - t0
     gi, _ = index.neighbor_graph
     qi, _ = index.query(q_dev, k=10, epsilon=0.25)
+    launches = _launches()
     _no_launches("14 mesh shard_data", dict(ik.LAUNCHES))
+    _join_launched("14 mesh shard_data", launches, False)  # candidate rows come over the ring
+    _add_path_launches(state, launches)
     g_rec = recall(gi[oracle["gs"]], oracle["g_truth"])
     q_rec = recall(qi[oracle["sample"]], oracle["truth"])
     log(f"[14 mesh] shard_data=True on the 1M x 128 cell: build {build_s:.2f} s "
@@ -1708,12 +1754,138 @@ def phase_search(torch, state):
     torch.cuda.empty_cache()
 
 
+def _join_ref64(torch, X, q, pool, metric, rows=256):
+    """float64 values of a block's pairs in the domain the comparison reads:
+    the squared distance, or for ``alternative_cosine`` the cosine clamped
+    at 0 (its distance is -log2 of it, FLOAT32_MAX where it is <= 0); NaN
+    where an id is -1. In blocks of ``rows`` query rows."""
+    out = []
+    for s0 in range(0, q.shape[0], rows):
+        Q = X[q[s0:s0 + rows].long()].double()
+        C = X[torch.clamp(pool[s0:s0 + rows], min=0).long()].double()
+        if metric == "alternative_cosine":
+            v = torch.einsum("bd,bpd->bp", Q, C) / (Q.norm(dim=-1)[:, None] * C.norm(dim=-1))
+            v = torch.clamp(v, min=0)
+        else:
+            v = torch.sum((C - Q[:, None, :]) ** 2, dim=-1)
+        out.append(v)
+    ref = torch.cat(out)
+    return torch.where(pool < 0, torch.full_like(ref, float("nan")), ref)
+
+
+def _join_domain(torch, d, metric):
+    """A join_dists output in the domain of ``_join_ref64``."""
+    if metric != "alternative_cosine":
+        return d.double()
+    from pynndescent_torch.ops.distances import FLOAT32_MAX
+
+    return torch.where(d >= FLOAT32_MAX, torch.zeros_like(d), torch.exp2(-d)).double()
+
+
+def phase_join(torch, state):
+    """``join_dists`` against ``join_dists_plain`` and both against float64
+    at the build cells' join block shapes (``nndescent.join_block_rows``),
+    on uniform random pools over the cells' row counts with 5% -1 ids. The
+    text cell's rows are a real hash sketch (signed, D = 4,096) of 18,846
+    rows of the TF-IDF corpus of phases 10-12; the others are Gaussian. Two
+    bounds by bytes: every real candidate's row read once from device memory
+    (``bound_ms``), and each distinct row of the block read once
+    (``distinct_bound_ms``, the least traffic the block needs), each with
+    the query rows, ids and output."""
+    from pynndescent_torch.ops import join_kernels as jk
+    from pynndescent_torch.ops import nndescent as tnd
+    from pynndescent_torch.ops import sketch
+
+    dev = torch.device("cuda")
+    card = state["card"]
+    shapes = (  # name, rows, d, dtype, metric, block rows b, pool width P
+        ("fmnist", 60_000, 784, torch.float32, "sqeuclidean", 1605, 320),
+        ("sift", 1_000_000, 128, torch.float32, "sqeuclidean", 4915, 320),
+        ("sketch", 18_846, 4096, torch.bfloat16, "alternative_cosine", 512, 456),
+        ("glove25", 1_183_514, 25, torch.float32, "sqeuclidean", 8192, 320),
+    )
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out, worst = [], 0.0
+    for name, n_rows, d, dtype, metric, b, P in shapes:
+        if name == "sketch":
+            train, _ = _tfidf(state)
+            X = torch.from_numpy(sketch.sketch_csr(train[:n_rows], d, seed=0)).to(dev)
+        else:
+            X = torch.randn((n_rows, d), generator=gen, device=dev)
+        X = X.to(dtype)
+        q = torch.randint(0, n_rows, (b,), generator=gen, device=dev, dtype=torch.int32)
+        pool = torch.randint(0, n_rows, (b, P), generator=gen, device=dev, dtype=torch.int32)
+        pool = torch.where(torch.rand((b, P), generator=gen, device=dev) < 0.05,
+                           torch.full_like(pool, -1), pool)
+        pool[:, 0] = q
+        fn = tnd._resolve_rowwise_metric(metric)
+        got = jk.join_dists(X, q, pool, metric=metric)
+        want = jk.join_dists_plain(X, q, pool, fn)
+        ref = _join_ref64(torch, X, q, pool, metric)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isinf(got), torch.isinf(want)):
+            raise AssertionError(f"join_dists {name}: +inf pattern differs")
+        fin = torch.isfinite(ref)
+        if metric == "alternative_cosine":
+            scale = torch.ones_like(ref)  # a cosine's error, absolute
+            near0 = float((ref[fin] < 1e-5).double().mean())
+        else:
+            sq = torch.sum(X.double() ** 2, dim=-1)
+            scale = sq[q.long()][:, None] + sq[torch.clamp(pool, min=0).long()]
+        g, w = _join_domain(torch, got, metric), _join_domain(torch, want, metric)
+
+        def widest(a, b):
+            return float(((a - b).abs() / scale)[fin].max())
+
+        errs = {"max_rel_diff": widest(g, w), "kernel_err64": widest(g, ref),
+                "plain_err64": widest(w, ref)}
+        tol = ATOL_PER_SQNORM * scale
+        if metric != "alternative_cosine":
+            tol = tol + RTOL * ref.abs()
+        for side, v in (("kernel", g), ("plain", w)):
+            if not bool(((v - ref).abs() <= tol)[fin].all()):
+                raise AssertionError(f"join_dists {name}: the {side} side is outside the "
+                                     f"tolerance of float64: {errs}")
+        if metric != "alternative_cosine":
+            err = (got - want).abs()[fin]
+            if bool((err > RTOL * want.abs()[fin] + ATOL_PER_SQNORM * scale[fin]).any()):
+                raise AssertionError(f"join_dists {name}: kernel and plain differ, max abs err "
+                                     f"{float(err.max())}")
+            if not bool((got[:, 0] == 0).all()):
+                raise AssertionError(f"join_dists {name}: a row against itself is not exactly 0")
+        worst = max(worst, errs["max_rel_diff"])
+        k_ms, p_ms = timed_pair(torch, lambda: jk.join_dists(X, q, pool, metric=metric),
+                                lambda: jk.join_dists_plain(X, q, pool, fn), reps=10)
+        real = pool[pool >= 0]
+        row_bytes = d * X.element_size()
+        extra = 2 * b * P * 4 + b * 4  # the ids in, the distances out
+        bound_ms = 1e3 * ((real.numel() + b) * row_bytes + extra) / PEAK_BYTES_PER_S
+        n_distinct = int(torch.unique(torch.cat([real, q])).numel())
+        distinct_ms = 1e3 * (n_distinct * row_bytes + extra) / PEAK_BYTES_PER_S
+        out.append({"shape": f"{name} {b}x{P}x{d} {str(dtype).split('.')[-1]}", "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": bound_ms, "distinct_rows": n_distinct,
+                    "distinct_bound_ms": distinct_ms, **errs})
+        log(f"[16 join] join_dists {name} {b} x {P} x {d} {dtype} {metric}: widest |kernel - "
+            f"plain| / scale {errs['max_rel_diff']:.3g}, against float64 kernel "
+            f"{errs['kernel_err64']:.3g} plain {errs['plain_err64']:.3g}"
+            + (f" (cosine domain; {100 * near0:.2f}% of pairs with a float64 cosine under "
+               f"1e-5, those <= 0 included)" if metric == "alternative_cosine" else "")
+            + f" | kernel {k_ms:.4f} ms; bound with every candidate row read {bound_ms:.4f} ms "
+            f"({100 * bound_ms / k_ms:.1f}% of the kernel's time; L2 reuse can pass 100%), "
+            f"with each of the {n_distinct} distinct rows read once {distinct_ms:.4f} ms "
+            f"({100 * distinct_ms / k_ms:.1f}%); plain {p_ms:.4f} ms ({p_ms / k_ms:.1f}x) | "
+            f"{card}")
+        del X, q, pool, got, want, ref, scale, g, w, real
+        torch.cuda.empty_cache()
+    state["join"] = {"shapes": out, "max_rel_diff": worst}
+
+
 PHASES = {"setup": phase_setup, "kernels": phase_kernels, "100k": phase_100k,
           "100k_cosine": phase_100k_cosine, "1m": phase_1m, "determinism": phase_determinism,
           "mnist784": phase_mnist784, "quantized": phase_quantized, "metrics": phase_metrics,
           "sparse_cosine": phase_sparse_cosine, "sparse_jaccard": phase_sparse_jaccard,
           "sparse_ell": phase_sparse_ell, "ot": phase_ot, "mesh": phase_mesh,
-          "search": phase_search}
+          "search": phase_search, "join": phase_join}
 
 
 def main():
@@ -1771,6 +1943,21 @@ def main():
              "max_abs_err": state["search_errs"][name], **state["search_times"][name],
              "bound_by": "bytes"}
             for name, line in (("search_seed", "75"), ("beam_search", "138"))]
+    if "join" in selected:
+        # no TPU kernel: the JAX package gathers the candidate rows and
+        # measures them with one batched product; times at the fmnist shape.
+        # launches: the main path's builds in this call (phases 3-14), null
+        # where none ran; phase 16's own calls are not counted
+        j = state["join"]
+        launches = state.get("path_launches")
+        kernels.append(
+            {"name": "join_dists", "route": "cuda", "source": src + "join_dists.cu",
+             "replaces": "pynndescent_tpu/ops/nndescent.py:315 (_join_block's gather and product)",
+             "launches": launches.get("join_dists") if launches is not None else None,
+             "max_rel_diff": j["max_rel_diff"], "ms": j["shapes"][0]["ms"],
+             "plain_ms": j["shapes"][0]["plain_ms"], "bound_ms": j["shapes"][0]["bound_ms"],
+             "distinct_bound_ms": j["shapes"][0]["distinct_bound_ms"], "bound_by": "bytes",
+             "shapes": j["shapes"]})
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

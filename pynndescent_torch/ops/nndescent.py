@@ -3,11 +3,12 @@ pynndescent_tpu/ops/nndescent.py).
 
 The same row-local formulation as the JAX package: every vertex gathers a
 fixed-width candidate pool (sampled new/old forward and reverse 1-hop
-candidates plus their 2-hop expansions), computes all distances as one
-batched tile and merges them into its own sorted row. The stages, in order:
-the forest init through the ``leaf_allpairs`` kernel, a random fill, at large
-n the locality phases (one ``window_topm`` sweep per tree order), and the
-join loop with the delta early exit.
+candidates plus their 2-hop expansions), computes its distances (on the
+card the ``join_dists`` kernel reads each candidate row by id; elsewhere
+one batched tile of gathered rows) and merges them into its own sorted row.
+The stages, in order: the forest init through the ``leaf_allpairs``
+kernel, a random fill, at large n the locality phases (one ``window_topm``
+sweep per tree order), and the join loop with the delta early exit.
 
 Differences from the JAX package, all of them consequences of running eagerly
 on one GPU: blocked loops update the state in place (the last block is
@@ -26,6 +27,7 @@ import torch
 
 from pynndescent_torch.ops import distances as dst
 from pynndescent_torch.ops import init_kernels as ik
+from pynndescent_torch.ops import join_kernels as jk
 from pynndescent_torch.ops.neighbors import (
     NeighborState,
     block_starts,
@@ -44,17 +46,30 @@ REVERSE_SAMPLE_SORT_MIN_N = 32768
 _INF = float("inf")
 
 
+class RowwiseMetric:
+    """fn(Q [b, d], C [b, m, d]) -> [b, m] distances of ``metric`` (a
+    registry name or a batched callable ``f(x, y, **kwds)`` over ``[..., d]``
+    tensors), which the candidate distances read to route to the
+    ``join_dists`` kernel. ``cast_candidates_f32`` upcasts gathered candidate
+    rows stored in bfloat16."""
+
+    __slots__ = ("metric", "kwds", "cast_candidates_f32")
+
+    def __init__(self, metric, kwds, cast_candidates_f32: bool = False):
+        self.metric, self.kwds, self.cast_candidates_f32 = metric, kwds, cast_candidates_f32
+
+    def __call__(self, Q, C):
+        if self.cast_candidates_f32:
+            C = C.to(torch.float32)
+        return dst.pairwise_rowwise(self.metric, Q, C, **self.kwds)
+
+
 def _resolve_rowwise_metric(metric, metric_kwds=None, cast_candidates_f32: bool = False):
-    """fn(Q [b, d], C [b, m, d]) -> [b, m] distances for a registry name or
-    a batched callable ``f(x, y, **metric_kwds)`` over ``[..., d]`` tensors.
-    ``cast_candidates_f32`` upcasts gathered candidate rows stored in
-    bfloat16. (The JAX package caches these closures for its trace cache;
+    """The ``RowwiseMetric`` of a registry name or a batched callable and its
+    keywords. (The JAX package caches these closures for its trace cache;
     eager code needs no cache.)"""
     dst.check_metric(metric)
-    kwds = dict(metric_kwds or {})
-    if cast_candidates_f32:
-        return lambda Q, C: dst.pairwise_rowwise(metric, Q, C.to(torch.float32), **kwds)
-    return lambda Q, C: dst.pairwise_rowwise(metric, Q, C, **kwds)
+    return RowwiseMetric(metric, dict(metric_kwds or {}), cast_candidates_f32)
 
 
 def _kernel_init_ok(metric, metric_kwds, X) -> bool:
@@ -73,6 +88,40 @@ def _sweep_ok(metric, metric_kwds, X) -> bool:
             and X.dtype in (torch.float32, torch.bfloat16))
 
 
+def _join_kernel_metric(dist_rowwise, rows):
+    """The metric name under which the ``join_dists`` kernel measures
+    candidates of the data rows ``rows``, or None where it does not: a
+    ``RowwiseMetric`` for which ``_sweep_ok`` holds (a gram-form registry
+    name, no keywords, float32 or bfloat16 rows), and ``rows`` a tensor the
+    part indexes by id (not a mesh part's ring reads). The device is the
+    caller's test: on the CPU the plain version runs."""
+    if not isinstance(rows, torch.Tensor) or not isinstance(dist_rowwise, RowwiseMetric):
+        return None
+    ok = _sweep_ok(dist_rowwise.metric, dist_rowwise.kwds, rows)
+    return dist_rowwise.metric if ok else None
+
+
+def _candidate_dists(rows, q_ids, cand, dist_rowwise, win_start: int = 0,
+                     tally=profiling.NULL_SPAN):
+    """Distances [b, m] from the data row of each id ``q_ids[r]`` to those
+    of the ids ``cand[r, :]``, +inf where an id is < 0 (or outside the
+    window ``rows`` holds from ``win_start``). ``rows`` is X (or a window
+    of it) indexed by id, or a callable giving the rows of an int64 tensor of
+    ids. A CUDA tensor that ``_join_kernel_metric`` takes goes to the
+    ``join_dists`` kernel; everything else to its plain version, the gather
+    and ``dist_rowwise``. ``tally`` (a span) counts the ``kernel_rows``
+    measured here: the b rows where the kernel ran, else 0."""
+    name = _join_kernel_metric(dist_rowwise, rows)
+    on_kernel = name is not None and rows.is_cuda
+    tally.count(kernel_rows=q_ids.shape[0] if on_kernel else 0)
+    if on_kernel:
+        return jk.join_dists(rows, q_ids, cand, metric=name, win_start=win_start)
+    if isinstance(rows, torch.Tensor):
+        return jk.join_dists_plain(rows, q_ids, cand, dist_rowwise, win_start)
+    d = dist_rowwise(rows(_long(q_ids)), rows(_long(torch.clamp(cand, min=0))))
+    return torch.where(cand < 0, torch.full_like(d, _INF), d)
+
+
 def _long(t):
     return t.to(torch.int64)
 
@@ -83,15 +132,16 @@ def _to(t, dev):
 
 class RowPart(NamedTuple):
     """Rows ``[lo, hi)`` of a neighbor state: ``state`` holds them from its
-    row 0, on the device of its tensors, and ``rows(ids)`` gives the data
-    rows of global ids (an int64 tensor on that device) there. A one-device
-    build has one part; a mesh build one a shard (parallel/mesh.py), reading
-    its copy of X or, with X row-sharded, the ring."""
+    row 0, on the device of its tensors, and ``rows`` gives the data rows of
+    global ids there: X itself on that device, indexed by id, or a callable
+    of an int64 tensor of ids. A one-device build has one part; a mesh build
+    one a shard (parallel/mesh.py), holding its copy of X or, with X
+    row-sharded, reading the ring."""
 
     lo: int
     hi: int
     state: NeighborState
-    rows: Callable
+    rows: torch.Tensor | Callable
 
 
 def _placed(state: NeighborState, lo: int, hi: int, dev) -> NeighborState:
@@ -268,29 +318,28 @@ def _slice_hop2(table, hops):
 
 
 def _join_block(row_ids, hop_new, hop_old, tbl_nn, tbl_no, tbl_on, X_rows, dist_rowwise,
-                n_real: int, win_start: int = 0):
+                n_real: int, win_start: int = 0, tally=profiling.NULL_SPAN):
     """Candidate pool of a row block and its distances (JAX :315). Pool ids
     outside ``[win_start, win_start + len(X_rows))`` become -1 (locality
-    windows). Returns (pool ids [b, P], distances [b, P])."""
+    windows). ``tally`` as in ``_candidate_dists``. Returns (pool ids [b,
+    P], distances [b, P])."""
     hop2_new = torch.cat([_slice_hop2(tbl_nn, hop_new), _slice_hop2(tbl_no, hop_new)], dim=-1)
     hop2_old = _slice_hop2(tbl_on, hop_old)
     pool = torch.cat([hop_new, hop2_new, hop2_old], dim=-1)
     pool = torch.where(row_ids[:, None] < n_real, pool, torch.full_like(pool, -1))
-    W = X_rows.shape[0]
     local = pool - win_start
-    pool = torch.where((local >= 0) & (local < W), pool, torch.full_like(pool, -1))
-    local = _long(torch.clamp(local, 0, W - 1))
-    Q = X_rows[_long(torch.clamp(row_ids - win_start, 0, W - 1))]
-    d = dist_rowwise(Q, X_rows[local])
-    return pool, torch.where(pool < 0, torch.full_like(d, _INF), d)
+    pool = torch.where((local >= 0) & (local < X_rows.shape[0]), pool, torch.full_like(pool, -1))
+    return pool, _candidate_dists(X_rows, row_ids, pool, dist_rowwise, win_start, tally)
 
 
 def _descent_iteration(state: NeighborState, X, seed: int, *, max_candidates: int, dist_rowwise,
                        block_rows: int, hop2_new_samples: int, hop2_old_samples: int,
-                       window_rows: int | None = None, shards=None):
+                       window_rows: int | None = None, shards=None, tally=profiling.NULL_SPAN):
     """One join iteration over all row blocks; updates ``state`` in place
     and returns (state, number of changed slots as a 0-d tensor on the
-    state's device).
+    state's device). ``tally`` (a span) counts the ``rows`` joined, and
+    ``_candidate_dists`` the ``kernel_rows`` of them whose distances the
+    ``join_dists`` kernel measured.
 
     ``shards`` spreads the join over devices as ``[(lo, hi, X on a
     device)]`` row ranges (a mesh build): the candidates are sampled once for
@@ -321,6 +370,7 @@ def _descent_iteration(state: NeighborState, X, seed: int, *, max_candidates: in
         # a row block must fit inside its locality window
         b = min(b, window_rows)
     placed, changes, tables_on = [], [], {}
+    joined = 0
     for lo, hi, X_dev in shards:
         if lo >= hi:
             continue
@@ -341,12 +391,14 @@ def _descent_iteration(state: NeighborState, X, seed: int, *, max_candidates: in
                 ws, X_rows = 0, X_dev
             pool, d = _join_block(
                 rows, hop_new[start:start + bs], hop_old[start:start + bs], *tables_on[dev],
-                X_rows, dist_rowwise, n_real=n_x, win_start=ws,
+                X_rows, dist_rowwise, n_real=n_x, win_start=ws, tally=tally,
             )
             ch = ch + merge_rows_(sub, start, pool, d)
+            joined += bs
         placed.append((lo, hi, sub))
         changes.append(_to(ch, lead))
     _write_back(state, placed)
+    tally.count(rows=joined)
     return state, sum(changes[1:], changes[0])
 
 
@@ -358,13 +410,13 @@ def descent_loop(state, X, seed: int, stop_count: float, *, n_iters: int, max_ca
     most ``stop_count`` slots (the delta exit, JAX :1145). Each test reads
     the change count: one host sync per iteration. ``shards`` as in
     ``_descent_iteration``. ``tally`` (a span) counts the ``iters`` run and
-    the ``changes`` they read."""
+    the ``changes`` they read, and the iterations count their rows in it."""
     for it in range(n_iters):
         state, changes = _descent_iteration(
             state, X, rng.derive_seed(seed, rng.ROLE_DESCENT_ITER, it),
             max_candidates=max_candidates, dist_rowwise=dist_rowwise, block_rows=block_rows,
             hop2_new_samples=hop2_new_samples, hop2_old_samples=hop2_old_samples,
-            window_rows=window_rows, shards=shards,
+            window_rows=window_rows, shards=shards, tally=tally,
         )
         changes = int(changes)
         tally.count(iters=1, changes=changes)
@@ -400,7 +452,7 @@ def init_random(parts, seed: int, n_extra: int, dist_rowwise, block_rows: int = 
                 continue
             dev = p.state.idx.device
             r, c = _to(rows[lo - s0:hi - s0], dev), _to(cand[lo - s0:hi - s0], dev)
-            d = dist_rowwise(p.rows(_long(r)), p.rows(_long(c)))
+            d = _candidate_dists(p.rows, r, c, dist_rowwise)
             d = torch.where(c == r[:, None], torch.zeros_like(d), d)
             merge_rows_(p.state, lo - p.lo, c, d)
 
@@ -437,8 +489,7 @@ def init_from_forest(part: RowPart, orders, starts, sizes, dist_rowwise, leaf_ca
                            torch.full_like(cand, -1))
         cand = cand.permute(1, 0, 2).reshape(b, T * leaf_cap)
         pts = torch.arange(row0 + s0, row0 + s0 + b, device=dev)
-        d = dist_rowwise(part.rows(pts), part.rows(_long(torch.clamp(cand, min=0))))
-        merge_rows_(state, s0, cand, torch.where(cand < 0, torch.full_like(d, _INF), d))
+        merge_rows_(state, s0, cand, _candidate_dists(part.rows, pts, cand, dist_rowwise))
 
 
 def kernel_forest_init(state: NeighborState, X, orders, starts, sizes, metric: str,
@@ -643,7 +694,7 @@ def nn_descent(
 
         state = init_graph if init_graph is not None else make_neighbor_state(n, k, device=dev)
         shards = _row_shards(X_join, devices) if devices is not None and len(devices) > 1 else None
-        parts = [RowPart(lo, hi, _placed(state, lo, hi, Xd.device), Xd.__getitem__)
+        parts = [RowPart(lo, hi, _placed(state, lo, hi, Xd.device), Xd)
                  for lo, hi, Xd in shards or [(0, n, X_join)]]
 
         if forest is not None:

@@ -44,6 +44,8 @@ _SIGNATURES = {
     # min_distance, max_steps, E, metric, signed_zero, idx, dist, steps, stream
     "pynnd_beam_search": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _F, _F, _I, _I,
                           _I, _I, _P, _P, _P, _P],
+    # X, is_bf16, W, d, q_ids, b, pool, P, win_start, metric, out, stream
+    "pynnd_join_dists": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -279,13 +279,13 @@ def handmade_leaf_table(torch, dev):
 def leaf_into(out, X_t, ls, lz, metric):
     """One launch of the leaf kernel into a buffer the caller filled (the
     wrapper allocates its own, uninitialised). Not counted as a launch."""
-    from pynndescent_torch.ops import init_kernels as ik
+    from pynndescent_torch.ops import distances as dst
     from pynndescent_torch.utils import cuda_build
 
     lib = cuda_build.load_library()
     err = lib.pynnd_leaf_allpairs(
         X_t.data_ptr(), ls.data_ptr(), lz.data_ptr(), ls.shape[0], X_t.shape[0], X_t.shape[1],
-        ik.KERNEL_METRICS.index(metric), out.data_ptr(), cuda_build.stream_handle(X_t.device))
+        dst.GRAM_METRICS.index(metric), out.data_ptr(), cuda_build.stream_handle(X_t.device))
     cuda_build.check(err, "leaf_allpairs")
 
 
@@ -329,6 +329,7 @@ def _check_leaf(torch, state, errs, Xw_t, lsw, lzw):
     shapes (100k x 128, 100k x 100 in angular tree order, the 1M x 128 tree
     the caller built, and 70k x 784, which streams its slabs in chunks), each
     timed beside its plain version and bound."""
+    from pynndescent_torch.ops import distances as dst
     from pynndescent_torch.ops import init_kernels as ik
 
     dev = torch.device("cuda")
@@ -374,7 +375,7 @@ def _check_leaf(torch, state, errs, Xw_t, lsw, lzw):
     Xm = torch.from_numpy(make_data(70_000, 10, 784, seed=45)[0]).to(dev)
     order_m, lsm, lzm, _ = _forest_order(torch, Xm)
     shapes = (
-        ("100000x128", X[order].contiguous(), ls, lz, ik.KERNEL_METRICS, "sqeuclidean"),
+        ("100000x128", X[order].contiguous(), ls, lz, dst.GRAM_METRICS, "sqeuclidean"),
         ("100000x100", Xc[order_c].contiguous(), lsc, lzc, ("alternative_cosine",),
          "alternative_cosine"),
         ("1000000x128", Xw_t, lsw, lzw, ("sqeuclidean",), "sqeuclidean"),

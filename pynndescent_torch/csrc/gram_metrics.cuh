@@ -3,7 +3,7 @@
 // squared norms of both rows. Same formulas, same zero-vector and
 // non-positive-product conventions as the TPU kernels' tile math
 // (pynndescent_tpu/ops/pallas_init.py::_tile_distances); the metric ids are
-// the positions in pynndescent_torch.ops.init_kernels.KERNEL_METRICS.
+// the positions in pynndescent_torch.ops.distances.GRAM_METRICS.
 #pragma once
 
 #include <cfloat>

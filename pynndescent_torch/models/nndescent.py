@@ -174,7 +174,7 @@ def _rerank_rows(dist_rowwise, queries, cand_idx, X, k):
     chunk that it would compute from the whole gather, and the answers keep
     their bits (the device's reductions take their order from a call's
     shape)."""
-    rows = max(1, dst._BROADCAST_TILE_ELEMS // max(cand_idx.shape[1] * X.shape[1], 1))
+    rows = dst.tile_rows(cand_idx.shape[1] * X.shape[1])
     if rows < cand_idx.shape[0]:
         parts = [_rerank_rows(dist_rowwise, queries[s:s + rows], cand_idx[s:s + rows], X, k)
                  for s in range(0, cand_idx.shape[0], rows)]
@@ -483,7 +483,7 @@ class NNDescent:
         (+inf at -1), in row blocks."""
         fn = nnd_ops._resolve_rowwise_metric(self._internal_metric, self._internal_metric_kwds)
         n, k = idx.shape
-        b = max(1, min(n, (1 << 26) // max(k * self.dim, 1)))
+        b = max(1, min(n, dst.tile_rows(k * self.dim)))
         out = torch.empty((n, k), dtype=torch.float32, device=self.device)
         for s0 in block_starts(n, b):
             bi = idx[s0:s0 + b]
@@ -914,8 +914,6 @@ class NNDescent:
         tree_queries = None
         min_distance = self._min_distance
         search_q = q
-        # the registry name of what dist_rowwise computes, where it is one
-        metric = metric_kwds = None
         if self._quantized is not None:
             # the beam runs on codes, the tree descent on the float queries
             cand_X = self._quantized_codes_dev
@@ -930,9 +928,8 @@ class NNDescent:
             dist_rowwise = nnd_ops._resolve_rowwise_metric(self._make_ell_closure(*ell))
         else:
             cand_X = self._X_search if use_bf16 else self._X
-            metric, metric_kwds = self._internal_metric, self._internal_metric_kwds
             dist_rowwise = nnd_ops._resolve_rowwise_metric(
-                metric, metric_kwds, cast_candidates_f32=use_bf16)
+                self._internal_metric, self._internal_metric_kwds, cast_candidates_f32=use_bf16)
         if self._quantized is None:  # keywords move to the inputs' device at each call
             def rowwise_on(device):
                 return dist_rowwise
@@ -950,7 +947,6 @@ class NNDescent:
             rng.derive_seed(self._root_seed, rng.ROLE_SEARCH, 2), k=search_k, epsilon=epsilon,
             min_distance=min_distance, beam_width=beam, dist_rowwise=dist_rowwise,
             expansions_per_step=int(expansions_per_step), tree_queries=tree_queries, ell=ell,
-            metric=metric, metric_kwds=metric_kwds,
         )
         if is_proxy or use_bf16:
             with self._timer.phase("query/rerank"):

@@ -19,14 +19,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pynndescent_torch.ops import init_kernels as ik
 from pynndescent_torch.ops import search_kernels as sk
 from pynndescent_torch.ops.neighbors import (NeighborState, make_neighbor_state, merge_candidates,
                                               take_smallest)
-from pynndescent_torch.ops.rp_trees import _tree_norms, descend_tree
+from pynndescent_torch.ops.nndescent import kernel_metric
+from pynndescent_torch.ops.rp_trees import TREE_KEYS, _tree_norms, descend_tree
 from pynndescent_torch.utils import profiling, rng
 
-_TREE_KEYS = ("a_pt", "b_pt", "child", "leaf_lo", "leaf_hi", "tree_order")
 # gathered candidate elements per seeding pass past a leaf's first leaf_max
 # members (the size of one beam step's gather at 8192 queries, d = 128)
 _SEED_TILE_ELEMS = 1 << 25
@@ -37,7 +36,7 @@ def tree_to_device(tree: dict, device) -> dict:
     materialized ``hyper`` / ``offset`` (fp32) where the tree has them, plus
     the host scalars ``depth``, ``angular``, ``leaf_size`` and ``max_leaf``."""
     out = {k: torch.as_tensor(np.asarray(tree[k]), dtype=torch.int64, device=device)
-           for k in _TREE_KEYS}
+           for k in TREE_KEYS}
     if tree.get("hyper") is not None:
         for k in ("hyper", "offset"):
             out[k] = torch.as_tensor(np.asarray(tree[k], np.float32), device=device)
@@ -99,22 +98,25 @@ def _seed_beam(queries, X, tree, lo, hi, rand_ids, *, beam_width: int, leaf_max:
             extra = torch.empty((rows.numel(), 0), dtype=torch.int32, device=dev)
 
 
-def kernel_inputs(queries, X, adj, *, metric, metric_kwds, beam_width: int,
-                  expansions_per_step: int, tree_queries=None, ell=None) -> bool:
-    """Whether ``search_block`` may run on the search kernels
-    (``ops/search_kernels.py``), from what the inputs show, the device left
-    aside: dense float32 or bfloat16 rows with float32 queries, a gram-form
-    metric by its registry name with no keywords, no packed ELL rows, the
-    tree descended by the queries themselves (``tree_queries`` None: any
-    tree form), an int32 graph, and a beam width and ``expansions_per_step *
-    degree`` inside the kernels' shared-memory plan. Quantized codes and bit
-    rows are ``uint8`` and take the torch loop."""
-    return (X.dtype in (torch.float32, torch.bfloat16) and X.dim() == 2 and X.is_contiguous()
-            and 1 <= X.shape[0] < 2 ** 31 and queries.dtype == torch.float32
-            and queries.dim() == 2 and adj.dtype == torch.int32 and adj.dim() == 2
-            and isinstance(metric, str) and metric in ik.KERNEL_METRICS and not metric_kwds
-            and ell is None and tree_queries is None
-            and sk.fits(X.shape[1], beam_width, expansions_per_step, adj.shape[1]))
+def kernel_inputs(queries, X, adj, *, dist_rowwise, beam_width: int, expansions_per_step: int,
+                  tree_queries=None, ell=None):
+    """The metric name under which ``search_block`` may run on the search
+    kernels (``ops/search_kernels.py``), or None, from what the inputs show,
+    the device left aside: rows and a distance that ``kernel_metric`` takes
+    (dense float32 or bfloat16 rows, a gram-form registry metric without
+    keywords) with float32 queries, no packed ELL rows, the tree descended
+    by the queries themselves (``tree_queries`` None: any tree form), an
+    int32 graph, and a beam width and ``expansions_per_step * degree``
+    inside the kernels' shared-memory plan. Quantized codes and bit rows are
+    ``uint8`` and take the torch loop."""
+    name = kernel_metric(dist_rowwise, X)
+    if (name and X.dim() == 2 and X.is_contiguous() and 1 <= X.shape[0] < 2 ** 31
+            and queries.dtype == torch.float32 and queries.dim() == 2
+            and adj.dtype == torch.int32 and adj.dim() == 2 and ell is None
+            and tree_queries is None
+            and sk.fits(X.shape[1], beam_width, expansions_per_step, adj.shape[1])):
+        return name
+    return None
 
 
 def _top_k_order(width: int, candidates: int) -> bool:
@@ -125,25 +127,25 @@ def _top_k_order(width: int, candidates: int) -> bool:
 
 def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
                  min_distance: float, beam_width: int, dist_rowwise, max_steps: int,
-                 leaf_max: int, expansions_per_step: int = 2, tree_queries=None, ell=None,
-                 metric=None, metric_kwds=None):
+                 leaf_max: int, expansions_per_step: int = 2, tree_queries=None, ell=None):
     """Search one block of queries (JAX search.py:49). ``tree`` is a dict
     from ``tree_to_device`` or None. ``tree_queries`` are the float queries
     for the tree descent when ``queries`` are encoded for a beam that runs on
     codes. ``ell`` = (query nnz, data nnz) for packed ELL rows, whose tree
-    margins go through ``sparse_dot``. ``metric`` / ``metric_kwds`` name what
-    ``dist_rowwise`` computes where it is a registry metric (None otherwise):
-    on a CUDA device, inputs that ``kernel_inputs`` accepts run on the search
-    kernels, with no host sync. Returns (idx [q, k], dist [q, k], steps):
-    ``steps`` is the block's step count, an int from the torch loop, each
-    query's count (an int32 tensor [q], whose maximum is the block's) from
-    the kernels."""
+    margins go through ``sparse_dot``. On a CUDA device, inputs that
+    ``kernel_inputs`` accepts (``dist_rowwise`` a ``RowwiseMetric`` with a
+    gram form, among them) run on the search kernels, with no host sync; a
+    plain callable always takes the torch loop. Returns (idx [q, k],
+    dist [q, k], steps): ``steps`` is the block's step count, an int from
+    the torch loop, each query's count (an int32 tensor [q], whose maximum
+    is the block's) from the kernels."""
     q = queries.shape[0]
     n = X.shape[0]
     dev = queries.device
     E = expansions_per_step
+    # the metric name the kernels run under, falsy for the torch loop
     kernel = X.device.type == "cuda" and kernel_inputs(
-        queries, X, adj, metric=metric, metric_kwds=metric_kwds, beam_width=beam_width,
+        queries, X, adj, dist_rowwise=dist_rowwise, beam_width=beam_width,
         expansions_per_step=E, tree_queries=tree_queries, ell=ell)
     if kernel:
         queries, adj = queries.contiguous(), adj.contiguous()
@@ -160,7 +162,7 @@ def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
             norms = (_tree_norms(X, True) if tree is not None and tree["angular"]
                      and tree.get("hyper") is None else None)
             first = k + (leaf_max if tree is not None else 0)
-            state = sk.search_seed(queries, X, tree, coins, rand_ids, metric=metric,
+            state = sk.search_seed(queries, X, tree, coins, rand_ids, metric=kernel,
                                    beam_width=beam_width, norms=norms,
                                    signed_zero=_top_k_order(beam_width, first))
         else:
@@ -170,7 +172,7 @@ def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
     with profiling.span("query/beam", dev) as sp:
         if kernel:
             idx, dist, steps = sk.beam_search(
-                queries, X, adj, state, metric=metric, k=k,
+                queries, X, adj, state, metric=kernel, k=k,
                 epsilon=epsilon, min_distance=min_distance, max_steps=max_steps,
                 expansions_per_step=E, signed_zero=_top_k_order(beam_width, E * adj.shape[1]))
             if sp is not profiling.NULL_SPAN:
@@ -220,16 +222,14 @@ def _beam_loop(queries, X, adj, state: NeighborState, *, k: int, epsilon: float,
 def search(queries, X, adj, tree, seed: int, *, k: int, epsilon: float = 0.1,
            min_distance: float = 0.0, beam_width: int | None = None, dist_rowwise=None,
            max_steps: int | None = None, batch_size: int = 8192, expansions_per_step: int = 2,
-           tree_queries=None, ell=None, metric=None, metric_kwds=None):
+           tree_queries=None, ell=None):
     """Search driver over blocks of ``batch_size`` queries (JAX
     search.py:142). ``X`` holds the candidates the beam gathers: float rows,
     ``uint8`` bit rows, packed ELL rows (with ``ell``, the query and data
     widths), or quantized codes (then ``tree_queries`` carries the float
     queries for the tree descent). ``tree`` is a dict from
-    ``tree_to_device`` or None. ``metric`` / ``metric_kwds``: the registry
-    name and keywords of what ``dist_rowwise`` computes, or None
-    (``search_block``). Returns (idx, dist) tensors on the queries'
-    device."""
+    ``tree_to_device`` or None. Returns (idx, dist) tensors on the
+    queries' device."""
     nq = queries.shape[0]
     if beam_width is None:
         beam_width = max(2 * k, 48)
@@ -253,7 +253,6 @@ def search(queries, X, adj, tree, seed: int, *, k: int, epsilon: float = 0.1,
             dist_rowwise=dist_rowwise, max_steps=int(max_steps), leaf_max=leaf_max,
             expansions_per_step=int(expansions_per_step),
             tree_queries=None if tree_queries is None else tree_queries[s:e], ell=ell,
-            metric=metric, metric_kwds=metric_kwds,
         )
         out_idx.append(idx)
         out_dist.append(dist)

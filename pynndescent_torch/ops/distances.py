@@ -44,7 +44,8 @@ FLOAT32_EPS = float(np.finfo(np.float32).eps)
 FLOAT32_MAX = float(np.finfo(np.float32).max)
 
 # metrics whose distance follows from the gram product <x, y> and the squared
-# norms: the forms the hand-written kernels compute (ops/init_kernels.py)
+# norms: the forms the hand-written kernels compute, each under its position
+# here as its metric id (csrc/gram_metrics.cuh)
 GRAM_METRICS = (
     "sqeuclidean",
     "euclidean",
@@ -59,6 +60,20 @@ GRAM_METRICS = (
 
 # elements of one broadcast [rows, m, d] temporary (256 MiB of fp32)
 _BROADCAST_TILE_ELEMS = 1 << 26
+
+
+def gram_form(metric, kwds):
+    """The registry name of a gram-form metric given without keywords, else
+    None (callables included): what decides the gram-form paths here and the
+    route to every hand-written kernel."""
+    return metric if isinstance(metric, str) and metric in GRAM_METRICS and not kwds else None
+
+
+def tile_rows(width: int) -> int:
+    """Rows of a chunk whose temporaries, ``width`` elements a row, hold
+    about ``_BROADCAST_TILE_ELEMS`` elements. A device reduction's order
+    follows its chunk's shape, so the chunked passes share this one rule."""
+    return max(1, _BROADCAST_TILE_ELEMS // max(width, 1))
 
 
 def check_metric(metric):
@@ -783,10 +798,6 @@ proxy_distances = {
 # Pairwise forms
 # ---------------------------------------------------------------------------
 
-# names whose pairwise form is one matmul
-_PAIRWISE_FAST = GRAM_METRICS + ("proxy_inner_product",)
-
-
 def _resolve(metric, kwds):
     """The batched function of a registry name or a callable, with keywords
     bound."""
@@ -810,11 +821,11 @@ def pairwise(metric, X, Y=None, **kwds):
     if Y is None:
         Y = X
     X, Y = _f32(X), _f32(Y)
-    if isinstance(metric, str) and metric in _PAIRWISE_FAST and not kwds:
+    if gram_form(metric, kwds) or (metric == "proxy_inner_product" and not kwds):
         return _from_gram_pairwise(metric, X @ Y.T, torch.sum(X * X, dim=-1)[:, None],
                                    torch.sum(Y * Y, dim=-1)[None, :])
     fn = _resolve(metric, kwds)
-    rows = max(1, _BROADCAST_TILE_ELEMS // max(Y.shape[0] * Y.shape[1], 1))
+    rows = tile_rows(Y.shape[0] * Y.shape[1])
     if rows >= X.shape[0]:
         return fn(X[:, None, :], Y[None, :, :])
     return torch.cat([fn(X[s:s + rows, None, :], Y[None, :, :])
@@ -831,14 +842,14 @@ def pairwise_rowwise(metric, Q, C, **kwds):
     # jit, XLA keeps fused bfloat16 arithmetic in fp32 (excess precision), so
     # the JAX package never rounds these products and sums to bfloat16
     Q, C = _f32(Q), _f32(C)
-    if isinstance(metric, str) and metric in GRAM_METRICS and not kwds:
+    if gram_form(metric, kwds):
         g = torch.bmm(C, Q.unsqueeze(-1)).squeeze(-1)
         if metric in ("dot", "alternative_dot", "inner_product", "alternative_inner_product"):
             return _from_gram_dot(metric, g)
         return _from_gram_named(metric, g, torch.sum(Q * Q, dim=-1)[:, None],
                                 torch.sum(C * C, dim=-1))
     fn = _resolve(metric, kwds)
-    rows = max(1, _BROADCAST_TILE_ELEMS // max(C.shape[1] * C.shape[2], 1))
+    rows = tile_rows(C.shape[1] * C.shape[2])
     if rows >= Q.shape[0]:
         return fn(Q[:, None, :], C)
     return torch.cat([fn(Q[s:s + rows, None, :], C[s:s + rows])

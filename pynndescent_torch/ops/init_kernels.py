@@ -25,19 +25,6 @@ import torch
 from pynndescent_torch.ops import distances as dst
 from pynndescent_torch.ops.neighbors import take_smallest
 
-# metrics whose tile follows from (gram, squared norms); the position is the
-# metric id of csrc/gram_metrics.cuh
-KERNEL_METRICS = (
-    "sqeuclidean",
-    "euclidean",
-    "l2",
-    "cosine",
-    "alternative_cosine",
-    "dot",
-    "alternative_dot",
-    "inner_product",
-    "alternative_inner_product",
-)
 LEAF_CAP = 64  # rows of a leaf tile (the leaf kernel's only width)
 # working-set bounds of the plain versions: leaves per batched tile, and
 # elements of the [windows, win, win] distance tile
@@ -53,9 +40,9 @@ def reset_launch_counts():
 
 
 def _metric_id(metric: str) -> int:
-    if metric not in KERNEL_METRICS:
+    if metric not in dst.GRAM_METRICS:
         raise ValueError(f"unsupported kernel metric '{metric}'")
-    return KERNEL_METRICS.index(metric)
+    return dst.GRAM_METRICS.index(metric)
 
 
 def _tile_from_gram(metric: str, gram, sq_i, sq_j):

@@ -53,7 +53,7 @@ def join_dists(X_rows, q_ids, pool, *, metric: str, win_start: int = 0):
     q_ids [b] and pool [b, P] — integer ids, -1 for none. A pool id < 0 or
     outside the window gives +inf and its row is not read; a query id is
     clamped into the window. ``metric`` is one of
-    ``init_kernels.KERNEL_METRICS``; sums are fp32 (bf16 values widened
+    ``distances.GRAM_METRICS``; sums are fp32 (bf16 values widened
     exactly), as the plain version's, in another order.
     """
     _metric_id(metric)

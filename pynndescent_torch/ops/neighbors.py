@@ -131,6 +131,24 @@ def block_starts(n: int, b: int):
     return [min(i * b, n - b) for i in range(-(-n // b))]
 
 
+def run_starts(sorted_key):
+    """For a sorted 1-D key: each element's position (int64), whether it
+    heads its run of equal keys, and the position where its run starts (a
+    ``cummax`` over the heads' positions)."""
+    m = sorted_key.shape[0]
+    pos = torch.arange(m, dtype=torch.int64, device=sorted_key.device)
+    head = torch.ones(m, dtype=torch.bool, device=sorted_key.device)
+    head[1:] = sorted_key[1:] != sorted_key[:-1]
+    return pos, head, torch.cummax(torch.where(head, pos, torch.full_like(pos, -1)), 0).values
+
+
+def run_ranks(sorted_key):
+    """Rank of each element of a sorted 1-D key within its run of equal
+    keys."""
+    pos, _, start = run_starts(sorted_key)
+    return pos - start
+
+
 def sort_by_distance(idx, dist):
     """(idx, dist) sorted ascending by distance per row, invalid last."""
     d = torch.where((idx < 0) | torch.isnan(dist), torch.full_like(dist, float("inf")), dist)

@@ -34,6 +34,7 @@ from pynndescent_torch.ops.neighbors import (
     float_order_key,
     make_neighbor_state,
     merge_rows_,
+    run_ranks,
     sort_by_distance,
     take_smallest,
 )
@@ -49,14 +50,16 @@ _INF = float("inf")
 class RowwiseMetric:
     """fn(Q [b, d], C [b, m, d]) -> [b, m] distances of ``metric`` (a
     registry name or a batched callable ``f(x, y, **kwds)`` over ``[..., d]``
-    tensors), which the candidate distances read to route to the
-    ``join_dists`` kernel. ``cast_candidates_f32`` upcasts gathered candidate
-    rows stored in bfloat16."""
+    tensors). ``gram_form`` is ``distances.gram_form`` of the two, read by
+    every route to a hand-written kernel (``kernel_metric``).
+    ``cast_candidates_f32`` upcasts gathered candidate rows stored in
+    bfloat16."""
 
-    __slots__ = ("metric", "kwds", "cast_candidates_f32")
+    __slots__ = ("metric", "kwds", "cast_candidates_f32", "gram_form")
 
     def __init__(self, metric, kwds, cast_candidates_f32: bool = False):
         self.metric, self.kwds, self.cast_candidates_f32 = metric, kwds, cast_candidates_f32
+        self.gram_form = dst.gram_form(metric, kwds)
 
     def __call__(self, Q, C):
         if self.cast_candidates_f32:
@@ -72,33 +75,24 @@ def _resolve_rowwise_metric(metric, metric_kwds=None, cast_candidates_f32: bool 
     return RowwiseMetric(metric, dict(metric_kwds or {}), cast_candidates_f32)
 
 
-def _kernel_init_ok(metric, metric_kwds, X) -> bool:
-    """Whether the forest init runs through the ``leaf_allpairs`` kernel:
-    float32 data, a gram-form registry name and no metric keywords (JAX
-    ``_pallas_init_ok`` less its TPU-only limits). Everything else takes the
-    gather init."""
-    return (isinstance(metric, str) and metric in ik.KERNEL_METRICS and not metric_kwds
-            and X.dtype == torch.float32)
+# the data rows each hand-written kernel reads: the leaf init float32 alone
+# (JAX ``_pallas_init_ok``), the sweep, the join and the search bfloat16 too
+LEAF_KERNEL_DTYPES = (torch.float32,)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _sweep_ok(metric, metric_kwds, X) -> bool:
-    """Whether the locality phases may sweep with the ``window_topm`` kernel
-    (JAX ``_sweep_ok`` less its VMEM limits)."""
-    return (isinstance(metric, str) and metric in ik.KERNEL_METRICS and not metric_kwds
-            and X.dtype in (torch.float32, torch.bfloat16))
-
-
-def _join_kernel_metric(dist_rowwise, rows):
-    """The metric name under which the ``join_dists`` kernel measures
-    candidates of the data rows ``rows``, or None where it does not: a
-    ``RowwiseMetric`` for which ``_sweep_ok`` holds (a gram-form registry
-    name, no keywords, float32 or bfloat16 rows), and ``rows`` a tensor the
-    part indexes by id (not a mesh part's ring reads). The device is the
-    caller's test: on the CPU the plain version runs."""
-    if not isinstance(rows, torch.Tensor) or not isinstance(dist_rowwise, RowwiseMetric):
+def kernel_metric(dist_rowwise, rows, dtypes=KERNEL_DTYPES):
+    """The metric name under which a hand-written kernel measures
+    ``dist_rowwise`` on the data rows ``rows``, or None where none does: a
+    ``RowwiseMetric`` with a ``gram_form``, and ``rows`` a tensor of one of
+    the kernel's ``dtypes`` that is indexed by id (not a mesh part's ring
+    reads). Every other distance, the quantized and ELL closures included,
+    takes the plain torch path. The device is the caller's test: on the CPU
+    the plain version runs."""
+    if (not isinstance(dist_rowwise, RowwiseMetric) or not isinstance(rows, torch.Tensor)
+            or rows.dtype not in dtypes):
         return None
-    ok = _sweep_ok(dist_rowwise.metric, dist_rowwise.kwds, rows)
-    return dist_rowwise.metric if ok else None
+    return dist_rowwise.gram_form
 
 
 def _candidate_dists(rows, q_ids, cand, dist_rowwise, win_start: int = 0,
@@ -107,11 +101,11 @@ def _candidate_dists(rows, q_ids, cand, dist_rowwise, win_start: int = 0,
     of the ids ``cand[r, :]``, +inf where an id is < 0 (or outside the
     window ``rows`` holds from ``win_start``). ``rows`` is X (or a window
     of it) indexed by id, or a callable giving the rows of an int64 tensor of
-    ids. A CUDA tensor that ``_join_kernel_metric`` takes goes to the
+    ids. A CUDA tensor that ``kernel_metric`` takes goes to the
     ``join_dists`` kernel; everything else to its plain version, the gather
     and ``dist_rowwise``. ``tally`` (a span) counts the ``kernel_rows``
     measured here: the b rows where the kernel ran, else 0."""
-    name = _join_kernel_metric(dist_rowwise, rows)
+    name = kernel_metric(dist_rowwise, rows)
     on_kernel = name is not None and rows.is_cuda
     tally.count(kernel_rows=q_ids.shape[0] if on_kernel else 0)
     if on_kernel:
@@ -224,10 +218,7 @@ def _reverse_samples_sorted(idx, pri, new_mask, old_mask, n, c):
     _, perm = torch.sort(group * (1 << 32) + float_order_key(p), stable=True)
     g_s = group[perm]
     s_s = perm // k  # source row of each sorted edge
-    posn = torch.arange(nk, dtype=torch.int64, device=dev)
-    is_head = torch.ones(nk, dtype=torch.bool, device=dev)
-    is_head[1:] = g_s[1:] != g_s[:-1]
-    rank = posn - torch.cummax(torch.where(is_head, posn, torch.full_like(posn, -1)), 0).values
+    rank = run_ranks(g_s)
     keep = (rank < c) & (g_s < 2 * n)
     new_s = (g_s & 1) == 1
     tgt = g_s >> 1
@@ -658,7 +649,7 @@ def nn_descent(
     keywords. ``init_graph`` is a warm ``NeighborState`` (updated in place)
     instead of an empty one. ``forest`` is the init forest's ``(orders,
     starts, sizes)``; it goes through the ``leaf_allpairs`` kernel when
-    ``kernel_init`` is set and ``_kernel_init_ok`` holds, else through the
+    ``kernel_init`` is set and ``kernel_metric`` names one, else through the
     gather init. ``compute_dtype=torch.bfloat16`` joins on a bfloat16 copy of
     X and reranks the final graph exactly in fp32. ``locality`` as in the JAX
     package: None, "auto" (n >= 400k) or a dict.
@@ -699,8 +690,9 @@ def nn_descent(
 
         if forest is not None:
             orders, starts, sizes = forest
-            if kernel_init and _kernel_init_ok(metric, metric_kwds, X_join) and shards is None:
-                state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=metric)
+            leaf_metric = kernel_metric(dist_rowwise, X_join, LEAF_KERNEL_DTYPES)
+            if kernel_init and leaf_metric and shards is None:
+                state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=leaf_metric)
             else:
                 fb = forest_block_rows(int(orders.shape[0]), leaf_cap, d_bytes)
                 tables = {}
@@ -725,7 +717,8 @@ def nn_descent(
     if loc is not None:
         (W, phases, phase_iters, global_iters, refresh_flags, sweep_win, sweep_m,
          sweep_stagger) = loc
-        if sweep_win and not _sweep_ok(metric, metric_kwds, X_join):
+        sweep_metric = kernel_metric(dist_rowwise, X_join)
+        if sweep_win and not sweep_metric:
             # no sweep kernel for this metric: a sweep-only schedule becomes
             # the windowed-join schedule, few phases of several iterations
             sweep_win = 0
@@ -741,10 +734,10 @@ def nn_descent(
                 state = _state_to_tree_order(state, order)
                 Xp = X_join[_long(order)].contiguous()
                 if sweep_win:
-                    state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=metric)
+                    state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=sweep_metric)
                     if sweep_stagger:
-                        state = window_sweep(state, Xp, win=sweep_win, m=sweep_m, metric=metric,
-                                             offset=sweep_win // 2)
+                        state = window_sweep(state, Xp, win=sweep_win, m=sweep_m,
+                                             metric=sweep_metric, offset=sweep_win // 2)
                 if phase_iters > 0:
                     state = descent_loop(
                         state, Xp, rng.derive_seed(seed, rng.ROLE_DESCENT_LOCAL, ph), stop_count,

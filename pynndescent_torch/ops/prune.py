@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 from pynndescent_torch.ops import distances as dst
-from pynndescent_torch.ops.neighbors import block_starts, float_order_key
+from pynndescent_torch.ops.neighbors import block_starts, float_order_key, run_ranks
 from pynndescent_torch.utils import rng
 
 FLOAT32_EPS = float(np.finfo(np.float32).eps)
@@ -19,13 +19,13 @@ def _pair_dists_rowwise(metric, X, idx, metric_kwds=None):
     with or without keywords, or a callable) the broadcast formula over
     ``[rows, k, k, d]`` tiles of bounded size."""
     V = X[torch.clamp(idx, min=0).to(torch.int64)]
-    if isinstance(metric, str) and metric in dst.GRAM_METRICS and not metric_kwds:
+    if dst.gram_form(metric, metric_kwds):
         g = torch.bmm(V, V.transpose(1, 2))
         sq = torch.sum(V * V, dim=-1)
         return dst._from_gram_named(metric, g, sq[:, :, None], sq[:, None, :])
     fn = dst._resolve(metric, dict(metric_kwds or {}))
     b, k, d = V.shape
-    rows = max(1, dst._BROADCAST_TILE_ELEMS // max(k * k * d, 1))
+    rows = dst.tile_rows(k * k * d)
     return torch.cat([fn(V[s:s + rows, :, None, :], V[s:s + rows, None, :, :])
                       for s in range(0, b, rows)])
 
@@ -78,15 +78,6 @@ def diversify_all(idx, dist, X, metric, prune_prob=1.0, seed=0, degrees=None, ag
     return keep
 
 
-def _group_ranks(sorted_key):
-    """Rank of each element within its run of equal keys (sorted input)."""
-    m = sorted_key.shape[0]
-    posn = torch.arange(m, dtype=torch.int64, device=sorted_key.device)
-    is_head = torch.ones(m, dtype=torch.bool, device=sorted_key.device)
-    is_head[1:] = sorted_key[1:] != sorted_key[:-1]
-    return posn - torch.cummax(torch.where(is_head, posn, torch.full_like(posn, -1)), 0).values
-
-
 def reverse_topk(idx, dist, cap: int):
     """Reverse adjacency rows keeping each vertex's ``cap`` smallest-distance
     in-edges, by one sort on (target, distance) (JAX prune.py:145); ties in
@@ -100,7 +91,7 @@ def reverse_topk(idx, dist, cap: int):
     _, perm = torch.sort(tgt * (1 << 32) + float_order_key(d), stable=True)
     t_s, d_s = tgt[perm], d[perm]
     s_s = (perm // k).to(torch.int32)
-    rank = _group_ranks(t_s)
+    rank = run_ranks(t_s)
     keep = (rank < cap) & (t_s < n) & torch.isfinite(d_s)
     # dropped entries go to a dump row n, so every kept (row, col) is unique
     rows = torch.where(keep, t_s, torch.full_like(t_s, n))

@@ -30,6 +30,7 @@ import torch
 
 from pynndescent_torch.ops import sparse_ell as se
 from pynndescent_torch.ops.distances import popcount_sum
+from pynndescent_torch.ops.neighbors import run_starts
 
 _M32 = 0xFFFFFFFF
 MIN_SPLIT_BALANCE = 0.1
@@ -128,12 +129,9 @@ def _segments(sorted_key):
     """For a sorted 1-D key: per element, the first and last position of its
     run of equal keys."""
     m = sorted_key.shape[0]
-    pos = torch.arange(m, device=sorted_key.device)
-    head = torch.ones(m, dtype=torch.bool, device=sorted_key.device)
-    head[1:] = sorted_key[1:] != sorted_key[:-1]
+    pos, head, first = run_starts(sorted_key)
     tail = torch.ones_like(head)
     tail[:-1] = head[1:]
-    first = torch.cummax(torch.where(head, pos, torch.full_like(pos, -1)), 0).values
     last = torch.flip(
         torch.cummin(torch.flip(torch.where(tail, pos, torch.full_like(pos, m)), (0,)), 0).values,
         (0,),
@@ -450,6 +448,11 @@ def build_tree_trace(X, seed: int, leaf_size: int, max_depth: int, angular: bool
     head_pos.append(hp.cpu().numpy())
     head_size.append(hs.cpu().numpy())
     return order.cpu().numpy(), head_pos, head_size, head_a, head_b
+
+
+# the integer arrays of ``FlatTree.to_arrays`` that the query descent reads,
+# in the order csrc/beam_search.cu takes them
+TREE_KEYS = ("a_pt", "b_pt", "child", "leaf_lo", "leaf_hi", "tree_order")
 
 
 class FlatTree:

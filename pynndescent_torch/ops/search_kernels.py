@@ -18,6 +18,7 @@ import torch
 
 from pynndescent_torch.ops import init_kernels as ik
 from pynndescent_torch.ops.neighbors import NeighborState
+from pynndescent_torch.ops.rp_trees import TREE_KEYS
 
 # the shared-memory plan of csrc/beam_search.cu
 MAX_BEAM = 1024
@@ -27,8 +28,6 @@ SEED_CHUNK = 256
 MAX_SMEM_BYTES = 160 * 1024
 
 LAUNCHES = {"search_seed": 0, "beam_search": 0}
-
-_TREE_KEYS = ("a_pt", "b_pt", "child", "leaf_lo", "leaf_hi", "tree_order")
 
 
 def reset_launch_counts():
@@ -93,11 +92,11 @@ def search_seed(queries, X, tree, coins, rand_ids, *, metric: str, beam_width: i
     _need(rand_ids, (torch.int32,), "rand_ids", dev)
     if rand_ids.dim() != 2 or rand_ids.shape[0] != q:
         raise ValueError("rand_ids must be [q, r]")
-    arrays = dict.fromkeys(_TREE_KEYS)
+    arrays = dict.fromkeys(TREE_KEYS)
     hyper = offset = None
     depth = 0
     if tree is not None:
-        for key in _TREE_KEYS:
+        for key in TREE_KEYS:
             _need(tree[key], (torch.int64,), f"tree[{key!r}]", dev)
             arrays[key] = tree[key]
         _need(coins, (torch.int64,), "coins", dev)
@@ -119,7 +118,7 @@ def search_seed(queries, X, tree, coins, rand_ids, *, metric: str, beam_width: i
     angular_norms = norms if tree is not None and hyper is None and tree["angular"] else None
     err = lib.pynnd_search_seed(
         X.data_ptr(), int(X.dtype == torch.bfloat16), X.shape[0], d, queries.data_ptr(), q,
-        *(_ptr(arrays[key]) for key in _TREE_KEYS), _ptr(angular_norms), _ptr(hyper),
+        *(_ptr(arrays[key]) for key in TREE_KEYS), _ptr(angular_norms), _ptr(hyper),
         _ptr(offset), _ptr(coins if tree is not None else None), depth, rand_ids.data_ptr(),
         rand_ids.shape[1], beam_width, ik._metric_id(metric), int(signed_zero), idx.data_ptr(),
         dist.data_ptr(), flag.data_ptr(), cuda_build.stream_handle(dev))

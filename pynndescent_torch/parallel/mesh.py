@@ -47,6 +47,7 @@ from pynndescent_torch.ops.neighbors import (
     make_neighbor_state,
     merge_candidates,
     merge_rows_,
+    run_ranks,
     sort_by_distance,
 )
 from pynndescent_torch.utils import rng
@@ -273,15 +274,6 @@ def _two_key_order(k1, k2):
     return torch.sort(key, stable=True)[1]
 
 
-def _group_ranks(g_s):
-    """Rank of each entry of a sorted key array inside its run of equal keys."""
-    E = g_s.shape[0]
-    posn = torch.arange(E, dtype=torch.int64, device=g_s.device)
-    is_head = torch.ones(E, dtype=torch.bool, device=g_s.device)
-    is_head[1:] = g_s[1:] != g_s[:-1]
-    return posn - torch.cummax(torch.where(is_head, posn, torch.full_like(posn, -1)), 0).values
-
-
 def _scatter_slots(slot, values, size: int, fill, dtype):
     """A [size] buffer of ``fill`` with ``values`` at ``slot``; slots equal
     to ``size`` are dropped."""
@@ -298,7 +290,7 @@ def bucket_by_dest(dest, sort_key, ints, cap: int, n_dev: int):
     hold -1 / inf."""
     perm = _two_key_order(dest, sort_key)
     d_s = dest[perm].to(torch.int64)
-    rank = _group_ranks(d_s)
+    rank = run_ranks(d_s)
     keep = (rank < cap) & (d_s < n_dev)
     slot = torch.where(keep, d_s * cap + rank, torch.full_like(rank, n_dev * cap))
     size = n_dev * cap
@@ -313,7 +305,7 @@ def group_topc(gkey, n_groups: int, sort_key, ints, cap: int):
     perm = _two_key_order(gkey, sort_key)
     g_s = gkey[perm].to(torch.int64)
     ints_s = [v[perm] for v in ints]
-    rank = _group_ranks(g_s)
+    rank = run_ranks(g_s)
     keep = (rank < cap) & (g_s >= 0) & (g_s < n_groups)
     slot = torch.where(keep, g_s * cap + rank, torch.full_like(rank, n_groups * cap))
     tables = [_scatter_slots(slot, v, n_groups * cap, -1, torch.int32).view(n_groups, cap)
@@ -605,8 +597,7 @@ def _tree_on(tree, device):
 def sharded_search(queries, X, adj, tree, seed: int, mesh: Mesh, *, k: int, epsilon=0.1,
                    min_distance=0.0, beam_width=None, dist_rowwise=None,
                    axis_name: str = "data", per_device_batch: int = 8192, tree_queries=None,
-                   ell=None, expansions_per_step: int = 2, replica=None, metric=None,
-                   metric_kwds=None):
+                   ell=None, expansions_per_step: int = 2, replica=None):
     """Query search with the batch sharded over the mesh (JAX :688): each
     shard runs the beam over its part of a chunk against its device's copy of
     the index (``tree`` as ``models.search.tree_to_device`` gives it, or
@@ -618,9 +609,7 @@ def sharded_search(queries, X, adj, tree, seed: int, mesh: Mesh, *, k: int, epsi
     for a caller that keeps its index's copies there and has closures whose
     tensors lie there (``NNDescent`` does). Without it, X, adj and tree are
     copied to each device for this call, and ``dist_rowwise`` serves every
-    device, so it must hold no tensor of one device. ``metric`` /
-    ``metric_kwds`` name what ``dist_rowwise`` computes, as in
-    ``models.search.search``."""
+    device, so it must hold no tensor of one device."""
     from pynndescent_torch.models import search as search_ops
 
     qaxis = mesh.axis_names[0] if len(mesh.axis_names) > 1 else _data_axis(mesh, axis_name)
@@ -653,8 +642,7 @@ def sharded_search(queries, X, adj, tree, seed: int, mesh: Mesh, *, k: int, epsi
                 _to(queries[lo:hi], dev), X_d, adj_d, tree_d,
                 rng.derive_seed(seed, c0, i), k=k, epsilon=epsilon, min_distance=min_distance,
                 beam_width=beam_width, dist_rowwise=fn, batch_size=hi - lo,
-                expansions_per_step=expansions_per_step, tree_queries=tq, ell=ell,
-                metric=metric, metric_kwds=metric_kwds)
+                expansions_per_step=expansions_per_step, tree_queries=tq, ell=ell)
             out_idx.append(_to(idx, lead))
             out_dist.append(_to(dist, lead))
     return torch.cat(out_idx), torch.cat(out_dist)

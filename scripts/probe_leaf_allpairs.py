@@ -74,6 +74,7 @@ def main():
         cmd = [cb._find_nvcc(), *cb.NVCC_FLAGS, "-I", str(cb.CSRC_DIR), "-o", str(out), str(src)]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                              text=True))
+    from pynndescent_torch.ops import distances as dst
     from pynndescent_torch.ops import init_kernels as ik
 
     cb.load_library()  # the package's own build, for the wrapper's time; runs beside the others
@@ -117,7 +118,7 @@ def main():
         metric = args.metric or metric
         n, d = X_t.shape
         out = torch.empty((n, ik.LEAF_CAP), dtype=torch.float32, device=dev)
-        mid = ik.KERNEL_METRICS.index(metric)
+        mid = dst.GRAM_METRICS.index(metric)
 
         def run(name, out=out, X_t=X_t, ls=ls, lz=lz, n=n, d=d, mid=mid):
             if args.prefill and name != "default":

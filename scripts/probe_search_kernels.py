@@ -14,8 +14,9 @@ block) and at one block of 8,192 of the cell's queries (the least of 3):
 * ``search_seed`` and ``beam_search`` alone, by CUDA events recorded after
   a device sleep that outlasts the wrapper's host work, so that they hold
   the device's time alone; and the wrappers' own host time a call;
-* the torch loop (``search_block`` without the metric's name) at the same
-  shapes: the tree descent and seeding, and the whole block, by CUDA events;
+* the torch loop (``search_block`` with the distance as a plain callable,
+  which the kernels do not take) at the same shapes: the tree descent and
+  seeding, and the whole block, by CUDA events;
 * the byte bound: the bytes a query's search reads (the tree levels' anchor
   rows, its leaf's ids and rows, its random rows; per beam step E adjacency
   rows and the rows of their valid entries), at 3.35 TB/s. At 8,192 queries
@@ -108,8 +109,8 @@ def main():
     dist = tnd._resolve_rowwise_metric(metric, cast_candidates_f32=True)
     leaf_max = min(-(-2 * tree["leaf_size"] // 64) * 64, X.shape[0])
     common = dict(k=k, epsilon=eps, min_distance=index._min_distance, beam_width=width,
-                  dist_rowwise=dist, max_steps=X.shape[0], leaf_max=leaf_max,
-                  expansions_per_step=E)
+                  dist_rowwise=lambda Q, C: dist(Q, C), max_steps=X.shape[0],
+                  leaf_max=leaf_max, expansions_per_step=E)
     dev = X.device
 
     host_s = {"search_seed": [], "beam_search": []}

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from pynndescent_torch import NNDescent
+from pynndescent_torch.ops import distances as dst
 from pynndescent_torch.ops import init_kernels as ik
 from pynndescent_torch.ops import rp_trees as tr
 from _torch_parity import (clustered, cuda_device, exact_knn, handmade_leaf_data,  # noqa: F401
@@ -36,7 +37,7 @@ def tree_ordered():
     return X[n(o[0])], ls[0].contiguous(), lz[0].contiguous()
 
 
-@pytest.mark.parametrize("metric", ik.KERNEL_METRICS)
+@pytest.mark.parametrize("metric", dst.GRAM_METRICS)
 def test_leaf_allpairs_kernel_matches_plain(cuda_device, tree_ordered, metric):
     X_t, ls, lz = tree_ordered
     X_t, ls, lz = t(X_t).to(cuda_device), ls.to(cuda_device), lz.to(cuda_device)
@@ -90,7 +91,7 @@ def test_leaf_allpairs_kernel_writes_all_symmetric_and_repeatable(cuda_device, d
     lib = cuda_build.load_library()
     cuda_build.check(lib.pynnd_leaf_allpairs(
         X.data_ptr(), ls.data_ptr(), lz.data_ptr(), ls.shape[0], n_pts, d,
-        ik.KERNEL_METRICS.index("sqeuclidean"), out.data_ptr(),
+        dst.GRAM_METRICS.index("sqeuclidean"), out.data_ptr(),
         cuda_build.stream_handle(cuda_device)), "leaf_allpairs")
     torch.cuda.synchronize()
     assert not torch.isnan(out).any()
@@ -386,8 +387,8 @@ def test_mesh_over_two_cards_searches_each_cards_copy(cuda_device, route):
 
 # ---------------------------------------------------------------------------
 # the search kernels (csrc/beam_search.cu) against the torch loop they
-# replace: ``search_block`` with the metric's name runs the kernels, without
-# it the torch loop, from the same generator
+# replace: ``search_block`` with a gram-form ``RowwiseMetric`` runs the
+# kernels, with a plain callable of it the torch loop, from the same generator
 # ---------------------------------------------------------------------------
 
 
@@ -422,15 +423,15 @@ def _both_paths(cuda_device, X, Q, adj, tree, *, metric, dtype, beam_width, E, k
     tree_d = None if tree is None else ts.tree_to_device(tree, cuda_device)
     leaf_max = 0 if tree is None else min(-(-2 * tree_d["leaf_size"] // 64) * 64, X.shape[0])
     kw = dict(k=k, epsilon=0.2, min_distance=0.0, beam_width=beam_width, max_steps=X.shape[0],
-              leaf_max=leaf_max, expansions_per_step=E,
-              dist_rowwise=tnd._resolve_rowwise_metric(
-                  metric, cast_candidates_f32=dtype == torch.bfloat16))
+              leaf_max=leaf_max, expansions_per_step=E)
+    fn = tnd._resolve_rowwise_metric(metric, cast_candidates_f32=dtype == torch.bfloat16)
     sk.reset_launch_counts()
-    got = ts.search_block(Qd, Xd, adjd, tree_d, rng.generator(seed, cuda_device), metric=metric,
-                          **kw)
+    got = ts.search_block(Qd, Xd, adjd, tree_d, rng.generator(seed, cuda_device),
+                          dist_rowwise=fn, **kw)
     torch.cuda.synchronize()
     assert sk.LAUNCHES == {"search_seed": 1, "beam_search": 1}
-    want = ts.search_block(Qd, Xd, adjd, tree_d, rng.generator(seed, cuda_device), **kw)
+    want = ts.search_block(Qd, Xd, adjd, tree_d, rng.generator(seed, cuda_device),
+                           dist_rowwise=lambda Q, C: fn(Q, C), **kw)
     assert sk.LAUNCHES == {"search_seed": 1, "beam_search": 1}
     return got, want
 
@@ -513,12 +514,12 @@ def test_search_kernels_on_random_rows_track_the_torch_loop(cuda_device, metric)
     X = index._X_search
     assert X.dtype == torch.bfloat16
     name = index._internal_metric
-    kw = dict(k=15, epsilon=0.2, min_distance=index._min_distance, beam_width=48,
-              dist_rowwise=tnd._resolve_rowwise_metric(name, cast_candidates_f32=True))
+    kw = dict(k=15, epsilon=0.2, min_distance=index._min_distance, beam_width=48)
+    fn = tnd._resolve_rowwise_metric(name, cast_candidates_f32=True)
     args = (q, X, index._search_graph, index._tree_dev, 7)
     sk.reset_launch_counts()
-    gi, _ = ts.search(*args, metric=name, **kw)
-    wi, _ = ts.search(*args, **kw)
+    gi, _ = ts.search(*args, dist_rowwise=fn, **kw)
+    wi, _ = ts.search(*args, dist_rowwise=lambda Q, C: fn(Q, C), **kw)
     assert sk.LAUNCHES == {"search_seed": 1, "beam_search": 1}
     gi, wi = n(gi), n(wi)
     assert np.mean(np.all(gi == wi, axis=1)) >= 0.99
@@ -541,7 +542,7 @@ def test_search_kernels_launch_once_a_block(cuda_device):
     idx, dist = ts.search(t(Q).to(cuda_device), t(X).to(cuda_device), t(adj).to(cuda_device),
                           ts.tree_to_device(tree, cuda_device), 9, k=10, epsilon=0.2,
                           dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"),
-                          batch_size=300, metric="sqeuclidean")
+                          batch_size=300)
     assert sk.LAUNCHES == {"search_seed": 4, "beam_search": 4}
     assert idx.shape == (1000, 10) and bool((idx >= 0).all())
 
@@ -559,7 +560,7 @@ def test_search_kernels_add_no_host_sync(cuda_device, traced):
     Q = t(rs.randint(-3, 4, (64, X.shape[1])).astype(np.float32)).to(cuda_device)
     args = (Q, t(X).to(cuda_device), t(adj).to(cuda_device), ts.tree_to_device(tree, cuda_device))
     kw = dict(k=10, epsilon=0.2, min_distance=0.0, beam_width=48, max_steps=3000, leaf_max=64,
-              dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"), metric="sqeuclidean")
+              dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"))
     ts.search_block(*args, rng.generator(1, cuda_device), **kw)  # loads the library
     torch.cuda.synchronize()
     profiling.clear()

@@ -145,16 +145,23 @@ def test_port_kernels_engage_only_for_gram_metrics(nn_data):
     name, no keywords. Everything else takes the gather init."""
     from pynndescent_torch.ops import nndescent as nnd
 
+    def init_ok(metric, metric_kwds, X):
+        dist_rowwise = nnd._resolve_rowwise_metric(metric, metric_kwds)
+        return nnd.kernel_metric(dist_rowwise, X, nnd.LEAF_KERNEL_DTYPES) is not None
+
+    def sweep_ok(metric, metric_kwds, X):
+        return nnd.kernel_metric(nnd._resolve_rowwise_metric(metric, metric_kwds), X) is not None
+
     X32 = torch.zeros((4, 3))
-    assert nnd._kernel_init_ok("sqeuclidean", None, X32)
-    assert nnd._kernel_init_ok("alternative_cosine", {}, X32)
-    assert not nnd._kernel_init_ok("manhattan", None, X32)
-    assert not nnd._kernel_init_ok("sqeuclidean", {"p": 2}, X32)
-    assert not nnd._kernel_init_ok(lambda a, b: a, None, X32)
-    assert not nnd._kernel_init_ok("sqeuclidean", None, X32.to(torch.bfloat16))
-    assert not nnd._kernel_init_ok("bit_hamming", None, X32.to(torch.uint8))
-    assert nnd._sweep_ok("sqeuclidean", None, X32.to(torch.bfloat16))
-    assert not nnd._sweep_ok("manhattan", None, X32)
+    assert init_ok("sqeuclidean", None, X32)
+    assert init_ok("alternative_cosine", {}, X32)
+    assert not init_ok("manhattan", None, X32)
+    assert not init_ok("sqeuclidean", {"p": 2}, X32)
+    assert not init_ok(lambda a, b: a, None, X32)
+    assert not init_ok("sqeuclidean", None, X32.to(torch.bfloat16))
+    assert not init_ok("bit_hamming", None, X32.to(torch.uint8))
+    assert sweep_ok("sqeuclidean", None, X32.to(torch.bfloat16))
+    assert not sweep_ok("manhattan", None, X32)
     # a sweep-only locality schedule under a metric with no sweep kernel
     # falls back to windowed joins and still builds a good graph
     data = np.abs(nn_data) + 0.01

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from pynndescent_tpu.ops import pallas_init as pi
 from pynndescent_tpu.ops import rp_trees as jr
+from pynndescent_torch.ops import distances as dst
 from pynndescent_torch.ops import init_kernels as ik
 from _torch_parity import (handmade_leaf_data, handmade_leaf_table, leaf_blocks_symmetric,
                            leaf_oracle, n, t, window_ties_case)
@@ -50,7 +51,7 @@ def test_leaf_tables_from_orders_match_jax(forest):
     np.testing.assert_array_equal(n(tlz), n(jlz)[:, :n_leaves])
 
 
-@pytest.mark.parametrize("metric", ik.KERNEL_METRICS)
+@pytest.mark.parametrize("metric", dst.GRAM_METRICS)
 def test_leaf_allpairs_plain_matches_pallas(forest, metric):
     X, orders, starts, sizes = forest
     n_pts = X.shape[0]
@@ -86,7 +87,7 @@ def test_leaf_allpairs_oversized_leaf_rows_stay_inf():
 # So rtol 1e-4 everywhere, atol 1e-3 on squared distances and 3e-2 on their
 # roots.
 @pytest.mark.parametrize("d", [3, 100])
-@pytest.mark.parametrize("metric", ik.KERNEL_METRICS)
+@pytest.mark.parametrize("metric", dst.GRAM_METRICS)
 def test_leaf_allpairs_plain_matches_oracle_on_handmade_table(metric, d):
     n_pts, starts, sizes = handmade_leaf_table()
     X = handmade_leaf_data(d, seed=d)

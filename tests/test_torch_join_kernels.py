@@ -33,7 +33,6 @@ import torch
 
 from pynndescent_torch import NNDescent
 from pynndescent_torch.ops import distances as dst
-from pynndescent_torch.ops import init_kernels as ik
 from pynndescent_torch.ops import join_kernels as jk
 from pynndescent_torch.ops import nndescent as tnd
 from pynndescent_torch.ops import rp_trees as tr
@@ -74,7 +73,7 @@ def _gather_then_measure(X_rows, q, pool, metric, win_start):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("metric", ik.KERNEL_METRICS)
+@pytest.mark.parametrize("metric", dst.GRAM_METRICS)
 @pytest.mark.parametrize("win_start", [0, 7])
 def test_wrapper_on_the_cpu_is_the_gather_bit_for_bit(metric, dtype, win_start):
     X, q, pool = _case(win_start=win_start)
@@ -103,7 +102,7 @@ def test_wrapper_rejects_what_it_does_not_take():
 X32 = torch.zeros((8, 4))
 
 
-@pytest.mark.parametrize("dist_rowwise, rows, want", [
+ROUTE_INPUTS = pytest.mark.parametrize("dist_rowwise, rows, want", [
     (tnd._resolve_rowwise_metric("sqeuclidean"), X32, "sqeuclidean"),
     (tnd._resolve_rowwise_metric("alternative_cosine"), X32.to(torch.bfloat16),
      "alternative_cosine"),
@@ -118,8 +117,30 @@ X32 = torch.zeros((8, 4))
     (tnd._resolve_rowwise_metric("sqeuclidean"), X32.__getitem__, None),  # ring reads
 ], ids=["f32", "bf16", "cast", "manhattan", "minkowski", "keywords", "callable", "lambda",
         "uint8", "float16", "ring"])
+
+
+@ROUTE_INPUTS
 def test_the_route_to_the_kernel(dist_rowwise, rows, want):
-    assert tnd._join_kernel_metric(dist_rowwise, rows) == want
+    assert tnd.kernel_metric(dist_rowwise, rows) == want
+
+
+@ROUTE_INPUTS
+def test_every_kernel_route_reads_the_gram_form(dist_rowwise, rows, want):
+    """The leaf init, the sweep, the join and the search take the one
+    answer of ``RowwiseMetric.gram_form``, each within its own dtypes: the
+    leaf init float32 rows, the others float32 or bfloat16 rows, the search
+    also its shapes (here inside the kernels' plan)."""
+    from pynndescent_torch.models import search as ts
+
+    gram = getattr(dist_rowwise, "gram_form", None)
+    dtype = rows.dtype if isinstance(rows, torch.Tensor) else None
+    assert want == (gram if dtype in (torch.float32, torch.bfloat16) else None)
+    leaf = tnd.kernel_metric(dist_rowwise, rows, tnd.LEAF_KERNEL_DTYPES)
+    assert leaf == (gram if dtype == torch.float32 else None)
+    assert tnd.kernel_metric(dist_rowwise, rows, tnd.KERNEL_DTYPES) == want
+    search = ts.kernel_inputs(torch.zeros((2, 4)), rows, torch.zeros((8, 3), dtype=torch.int32),
+                              dist_rowwise=dist_rowwise, beam_width=48, expansions_per_step=2)
+    assert search == want
 
 
 @pytest.mark.parametrize("metric", ["sqeuclidean", "manhattan"])
@@ -271,7 +292,7 @@ def test_kernel_matches_plain(cuda_device, d, dtype, metric):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("metric", ik.KERNEL_METRICS)
+@pytest.mark.parametrize("metric", dst.GRAM_METRICS)
 def test_kernel_matches_plain_every_metric_in_a_window(cuda_device, metric, dtype):
     """Positive rows (the dot family's logs stay finite), a window from row
     700, ids on both sides of it, -1s and zero rows."""

@@ -1,5 +1,5 @@
 """Which inputs ``search_block`` sends to the search kernels
-(``models/search.py::kernel_inputs``), the metric's name on its way from
+(``models/search.py::kernel_inputs``), the search distance on its way from
 ``query`` to the search, the kernel wrappers' checks, and span counters given
 as tensors. CPU only: the kernels themselves are tested on the card
 (``tests/test_torch_cuda.py``)."""
@@ -10,6 +10,7 @@ import torch
 
 from pynndescent_torch import NNDescent
 from pynndescent_torch.models import search as ts
+from pynndescent_torch.ops import distances as dst
 from pynndescent_torch.ops import nndescent as tnd
 from pynndescent_torch.ops import search_kernels as sk
 from pynndescent_torch.utils import profiling
@@ -21,8 +22,8 @@ D = 784
 def _inputs(**change):
     args = dict(queries=torch.zeros((4, D)), X=torch.zeros((100, D)),
                 adj=torch.zeros((100, 30), dtype=torch.int32))
-    kw = dict(metric="sqeuclidean", metric_kwds=None, beam_width=48, expansions_per_step=2,
-              tree_queries=None, ell=None)
+    kw = dict(dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"), beam_width=48,
+              expansions_per_step=2, tree_queries=None, ell=None)
     for key, value in change.items():
         (args if key in args else kw)[key] = value
     return args, kw
@@ -32,17 +33,20 @@ def _inputs(**change):
 ROUTE_CASES = [
     ("fp32_rows", {}, True),
     ("bf16_search_copy", {"X": torch.zeros((100, D), dtype=torch.bfloat16)}, True),
-    ("cosine_surrogate", {"metric": "alternative_cosine"}, True),
-    ("empty_keywords", {"metric_kwds": {}}, True),
+    ("cosine_surrogate", {"dist_rowwise": tnd._resolve_rowwise_metric("alternative_cosine")},
+     True),
+    ("empty_keywords", {"dist_rowwise": tnd._resolve_rowwise_metric("sqeuclidean", {})}, True),
     ("fp64_rows", {"X": torch.zeros((100, D), dtype=torch.float64)}, False),
     ("uint8_codes_or_bits", {"X": torch.zeros((100, D), dtype=torch.uint8)}, False),
     ("fp64_queries", {"queries": torch.zeros((4, D), dtype=torch.float64)}, False),
     ("strided_rows", {"X": torch.zeros((D, 100)).t()}, False),
     ("int64_graph", {"adj": torch.zeros((100, 30), dtype=torch.int64)}, False),
-    ("non_gram_metric", {"metric": "manhattan"}, False),
-    ("callable_metric", {"metric": tnd._resolve_rowwise_metric("sqeuclidean")}, False),
-    ("no_metric_name", {"metric": None}, False),
-    ("metric_keywords", {"metric": "sqeuclidean", "metric_kwds": {"w": 1.0}}, False),
+    ("non_gram_metric", {"dist_rowwise": tnd._resolve_rowwise_metric("manhattan")}, False),
+    ("callable_metric", {"dist_rowwise": tnd._resolve_rowwise_metric(dst.squared_euclidean)},
+     False),
+    ("no_metric_name", {"dist_rowwise": lambda Q, C: dst.pairwise_rowwise("sqeuclidean", Q, C)},
+     False),
+    ("metric_keywords", {"dist_rowwise": tnd.RowwiseMetric("sqeuclidean", {"w": 1.0})}, False),
     ("packed_ell", {"ell": (8, 8)}, False),
     ("quantized_tree_queries", {"tree_queries": torch.zeros((4, D))}, False),
     ("beam_past_the_plan", {"beam_width": sk.MAX_BEAM + 1}, False),
@@ -57,7 +61,8 @@ ROUTE_CASES = [
                          ids=[c[0] for c in ROUTE_CASES])
 def test_kernel_route_follows_the_inputs(change, taken):
     args, kw = _inputs(**change)
-    assert ts.kernel_inputs(args["queries"], args["X"], args["adj"], **kw) is taken
+    name = ts.kernel_inputs(args["queries"], args["X"], args["adj"], **kw)
+    assert name == (kw["dist_rowwise"].gram_form if taken else None)
 
 
 def test_shared_memory_plan_bounds():
@@ -68,18 +73,19 @@ def test_shared_memory_plan_bounds():
 
 
 def test_cpu_search_block_takes_the_torch_loop():
-    """On the CPU the metric's name changes nothing: the torch loop runs and
-    no kernel launches; the beam is the one it gives without the name."""
+    """On the CPU a distance the kernels take changes nothing: the torch loop
+    runs and no kernel launches; the beam is the one a plain callable of the
+    same distance gives."""
     rs = np.random.RandomState(0)
     X = torch.from_numpy(clustered(500, 8, seed=1))
     Q = torch.from_numpy(clustered(20, 8, seed=2))
     adj = torch.from_numpy(rs.randint(0, 500, (500, 8)).astype(np.int32))
-    kw = dict(k=10, epsilon=0.2, min_distance=0.0, beam_width=48, max_steps=500, leaf_max=0,
-              dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"))
+    kw = dict(k=10, epsilon=0.2, min_distance=0.0, beam_width=48, max_steps=500, leaf_max=0)
+    fn = tnd._resolve_rowwise_metric("sqeuclidean")
     sk.reset_launch_counts()
-    got = ts.search_block(Q, X, adj, None, torch.Generator().manual_seed(1), metric="sqeuclidean",
-                          **kw)
-    want = ts.search_block(Q, X, adj, None, torch.Generator().manual_seed(1), **kw)
+    got = ts.search_block(Q, X, adj, None, torch.Generator().manual_seed(1), dist_rowwise=fn, **kw)
+    want = ts.search_block(Q, X, adj, None, torch.Generator().manual_seed(1),
+                           dist_rowwise=lambda Q, C: fn(Q, C), **kw)
     assert sk.LAUNCHES == {"search_seed": 0, "beam_search": 0}
     assert isinstance(got[2], int) and got[2] == want[2]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -96,7 +102,8 @@ def _captured_metric(monkeypatch, index, queries):
     block = ts.search_block
 
     def spy(*a, **k):
-        seen.append((k.get("metric"), k.get("metric_kwds")))
+        fn = k["dist_rowwise"]
+        seen.append((getattr(fn, "metric", None), getattr(fn, "kwds", None)))
         return block(*a, **k)
 
     monkeypatch.setattr(ts, "search_block", spy)
@@ -112,9 +119,10 @@ def _captured_metric(monkeypatch, index, queries):
     ({"devices": 2}, "sqeuclidean"),
 ], ids=["euclidean", "cosine", "manhattan", "uint8", "mesh"])
 def test_query_names_its_search_metric(monkeypatch, index_data, kw, want):
-    """``_query_impl`` passes the registry name of its search distance (and
-    its keywords) through ``search`` and ``sharded_search`` to
-    ``search_block``; a quantized index's closure over codes has none."""
+    """``_query_impl`` passes its search distance, a ``RowwiseMetric`` of the
+    internal metric's registry name with no keywords, through ``search`` and
+    ``sharded_search`` to ``search_block``; a quantized index's closure over
+    codes has no name."""
     train, queries = index_data
     index = NNDescent(train, n_neighbors=8, random_state=3, device="cpu", **kw)
     seen = _captured_metric(monkeypatch, index, queries)

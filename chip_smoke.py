@@ -29,7 +29,7 @@ non-zero:
 8. quantized: ``quantization="uint8"``, ``"uint4"`` and ``"binary"`` on the
    100k x 128 data beside the unquantized index;
 9. metrics: ``manhattan`` (a broadcast metric) and ``bit_hamming`` (packed
-   ``uint8`` rows) builds, which must launch no kernel (``join_dists``
+   ``uint8`` rows) builds, which must launch no gram kernel (``join_dists``
    included);
 10. sparse_cosine: ``bench.py``'s 50k x 100k TF-IDF corpus (CSR, 64 stored
     entries a row) under cosine: the hash sketch, the exact ELL rerank, a
@@ -69,7 +69,14 @@ non-zero:
     build cells' block shapes (fmnist 1,605 x 320 x 784 fp32, sift 4,915 x
     320 x 128 fp32, the text sketch 512 x 456 x 4,096 bf16) and at d = 25:
     the widest distance difference over its scale, the kernel's time beside
-    its byte bound and the plain version's time.
+    its byte bound and the plain version's time;
+17. run_bounds: the run bounds of a sorted int64 key, the kernel against its
+    plain scan (``cummax`` / flipped ``cummin``) and ``torch.searchsorted``,
+    bit for bit, at the main path's key counts (the 1M build's forest levels,
+    12 x 1M keys, both bounds; its reverse sampling, 10M keys, the first;
+    the fmnist build's forest level, 10 x 60k), each time beside the byte
+    bound. Phases 3-14 count its launches on their builds; the dense main
+    path's (phases 3-7) must launch it.
 
 The last two lines are a JSON object describing the kernels and, last,
 ``{"ok": true, "device": {...}}``. Recall is measured against an exact fp32
@@ -605,21 +612,24 @@ def _check_window(torch, state, errs, Xw_t):
 
 
 def _reset_launches():
-    """Set the gram kernels' launch counts to 0: the init kernels' and
-    ``join_dists``."""
+    """Set the kernels' launch counts to 0: the init kernels', ``join_dists``'
+    and ``run_bounds``'."""
     from pynndescent_torch.ops import init_kernels as ik
     from pynndescent_torch.ops import join_kernels as jk
+    from pynndescent_torch.ops import run_kernels as rk
 
     ik.reset_launch_counts()
     jk.reset_launch_counts()
+    rk.reset_launch_counts()
 
 
 def _launches():
-    """The gram kernels' launch counts since ``_reset_launches``."""
+    """The kernels' launch counts since ``_reset_launches``."""
     from pynndescent_torch.ops import init_kernels as ik
     from pynndescent_torch.ops import join_kernels as jk
+    from pynndescent_torch.ops import run_kernels as rk
 
-    return {**ik.LAUNCHES, **jk.LAUNCHES}
+    return {**ik.LAUNCHES, **jk.LAUNCHES, **rk.LAUNCHES}
 
 
 def _add_path_launches(state, launches):
@@ -700,6 +710,8 @@ def _build_and_query(torch, state, tag, train, queries, metric, epsilon, graph_r
         raise AssertionError(f"{tag}: leaf_allpairs launched {launches['leaf_allpairs']} times "
                              f"for {index.n_trees} trees")
     _join_launched(tag, launches, True)
+    if launches["run_bounds"] == 0:
+        raise AssertionError(f"{tag}: the forest's run bounds took no run_bounds launch")
     _add_path_launches(state, launches)
     if keep:
         return launches, index, epsilon, build_s
@@ -906,7 +918,8 @@ def phase_quantized(torch, state):
 
 def phase_metrics(torch, state):
     """Builds outside the kernels' gate: a broadcast metric on float rows
-    and a bit metric on packed uint8 rows. Neither may launch a kernel."""
+    and a bit metric on packed uint8 rows. Neither may launch a gram kernel
+    (``run_bounds`` serves every metric)."""
     from pynndescent_torch import NNDescent
 
     dev = torch.device("cuda")
@@ -925,7 +938,7 @@ def phase_metrics(torch, state):
         build_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = _launches()
-        if any(launches.values()):
+        if any(v for k, v in launches.items() if k != "run_bounds"):
             raise AssertionError(f"{metric} build launched a gram kernel: {launches}")
         return index, build_s, peak, launches
 
@@ -1881,12 +1894,73 @@ def phase_join(torch, state):
     state["join"] = {"shapes": out, "max_rel_diff": worst}
 
 
+def phase_run_bounds(torch, state):
+    """``run_bounds`` against ``run_bounds_plain`` and ``torch.searchsorted``
+    on sorted int64 keys at the main path's counts: forest levels of
+    ``trees`` x ``n`` keys ``tree * 2^(depth + 4) + node`` with node ids
+    drawn at ``depth`` (depth 0: one node a tree, runs of ``n``), and the
+    descent's reverse-sampling groups (``target * 2 + is_new``, 10 per
+    target). CUDA-event ms a call (``timed_pair``: the kernel 40 calls
+    between two turns of 10 of the plain scan; searchsorted 5), beside the
+    bound by bytes: each key read once, each bound written once, at 3.35
+    TB/s."""
+    from pynndescent_torch.ops import run_kernels as rk
+
+    dev = torch.device("cuda")
+    card = state["card"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shapes = (  # name, trees (0: reverse-sampling groups), n, depth, with_last
+        ("sift forest level 10", 12, 1_000_000, 10, True),
+        ("sift forest level 0", 12, 1_000_000, 0, True),
+        ("sift reverse sampling", 0, 1_000_000, 0, False),
+        ("fmnist forest level 6", 10, 60_000, 6, True),
+    )
+    out = []
+    for name, trees, n, depth, with_last in shapes:
+        if trees:
+            node = torch.randint(0, 1 << depth, (trees, n), generator=gen, device=dev)
+            tree = torch.arange(trees, device=dev)[:, None]
+            key = torch.sort((tree * (1 << (depth + 4)) + node).reshape(-1)).values
+        else:
+            key = torch.sort(torch.randint(0, 2 * n, (10 * n,), generator=gen,
+                                           device=dev)).values
+        m = key.shape[0]
+
+        def library():
+            lo = torch.searchsorted(key, key)
+            return lo, (torch.searchsorted(key, key, right=True) - 1 if with_last else None)
+
+        got = rk.run_bounds(key, with_last)
+        want, lib = rk.run_bounds_plain(key, with_last), library()
+        torch.cuda.synchronize()
+        for side, other in (("plain", want), ("searchsorted", lib)):
+            same = torch.equal(got[0], other[0])
+            if not same or (with_last and not torch.equal(got[1], other[1])):
+                raise AssertionError(f"run_bounds {name}: the kernel differs from {side}")
+        runs = int(torch.unique_consecutive(key).numel())
+        k_ms, p_ms = timed_pair(torch, lambda: rk.run_bounds(key, with_last),
+                                lambda: rk.run_bounds_plain(key, with_last), reps=20)
+        l_ms = cuda_ms(torch, library, 5)
+        bound_ms = 1e3 * m * 8 * (3 if with_last else 2) / PEAK_BYTES_PER_S
+        bounds = "both bounds" if with_last else "first"
+        out.append({"shape": f"{name}: {m} keys, {runs} runs, {bounds}", "ms": k_ms,
+                    "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms})
+        log(f"[17 run_bounds] {name}: {m} keys in {runs} runs, "
+            f"{bounds}: equal to the plain scan and to "
+            f"searchsorted | kernel {k_ms:.4f} ms, bound by bytes {bound_ms:.4f} ms "
+            f"({100 * bound_ms / k_ms:.1f}% of the kernel's time); plain {p_ms:.4f} ms "
+            f"({p_ms / k_ms:.1f}x); torch.searchsorted {l_ms:.4f} ms | {card}")
+        del key, got, want, lib
+        torch.cuda.empty_cache()
+    state["run_bounds"] = out
+
+
 PHASES = {"setup": phase_setup, "kernels": phase_kernels, "100k": phase_100k,
           "100k_cosine": phase_100k_cosine, "1m": phase_1m, "determinism": phase_determinism,
           "mnist784": phase_mnist784, "quantized": phase_quantized, "metrics": phase_metrics,
           "sparse_cosine": phase_sparse_cosine, "sparse_jaccard": phase_sparse_jaccard,
           "sparse_ell": phase_sparse_ell, "ot": phase_ot, "mesh": phase_mesh,
-          "search": phase_search, "join": phase_join}
+          "search": phase_search, "join": phase_join, "run_bounds": phase_run_bounds}
 
 
 def main():
@@ -1959,6 +2033,19 @@ def main():
              "plain_ms": j["shapes"][0]["plain_ms"], "bound_ms": j["shapes"][0]["bound_ms"],
              "distinct_bound_ms": j["shapes"][0]["distinct_bound_ms"], "bound_by": "bytes",
              "shapes": j["shapes"]})
+    if "run_bounds" in selected:
+        # no TPU kernel: the JAX package scans with lax.cummax; times at the
+        # 1M build's forest level. launches: the main path's builds in this
+        # call (phases 3-14), null where none ran
+        r = state["run_bounds"]
+        launches = state.get("path_launches")
+        kernels.append(
+            {"name": "run_bounds", "route": "cuda", "source": src + "run_bounds.cu",
+             "replaces": "pynndescent_tpu/ops/nndescent.py:189 (lax.cummax of the run heads)",
+             "launches": launches.get("run_bounds") if launches is not None else None,
+             "max_abs_err": 0, "ms": r[0]["ms"], "plain_ms": r[0]["plain_ms"],
+             "bound_ms": r[0]["bound_ms"], "bound_by": "bytes",
+             "library_ms": r[0]["library_ms"], "shapes": r})
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

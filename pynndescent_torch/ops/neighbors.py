@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from pynndescent_torch.ops import run_kernels
+
 # ids are packed as id * 4 + age and as a 30-bit field of the sort key
 MAX_ID = 1 << 29
 _INVALID = MAX_ID
@@ -131,22 +133,12 @@ def block_starts(n: int, b: int):
     return [min(i * b, n - b) for i in range(-(-n // b))]
 
 
-def run_starts(sorted_key):
-    """For a sorted 1-D key: each element's position (int64), whether it
-    heads its run of equal keys, and the position where its run starts (a
-    ``cummax`` over the heads' positions)."""
-    m = sorted_key.shape[0]
-    pos = torch.arange(m, dtype=torch.int64, device=sorted_key.device)
-    head = torch.ones(m, dtype=torch.bool, device=sorted_key.device)
-    head[1:] = sorted_key[1:] != sorted_key[:-1]
-    return pos, head, torch.cummax(torch.where(head, pos, torch.full_like(pos, -1)), 0).values
-
-
 def run_ranks(sorted_key):
-    """Rank of each element of a sorted 1-D key within its run of equal
-    keys."""
-    pos, _, start = run_starts(sorted_key)
-    return pos - start
+    """Rank (int64) of each element of a 1-D key sorted ascending within its
+    run of equal keys: its position less its run's first
+    (``run_kernels.run_bounds``)."""
+    first, _ = run_kernels.run_bounds(sorted_key)
+    return torch.arange(first.shape[0], dtype=torch.int64, device=first.device) - first
 
 
 def sort_by_distance(idx, dist):

@@ -28,9 +28,10 @@ from collections import deque
 import numpy as np
 import torch
 
+from pynndescent_torch.ops import run_kernels
 from pynndescent_torch.ops import sparse_ell as se
 from pynndescent_torch.ops.distances import popcount_sum
-from pynndescent_torch.ops.neighbors import run_starts
+from pynndescent_torch.utils import profiling
 
 _M32 = 0xFFFFFFFF
 MIN_SPLIT_BALANCE = 0.1
@@ -125,18 +126,13 @@ def _bit_margin(x, xa, xb):
 # ---------------------------------------------------------------------------
 
 
-def _segments(sorted_key):
+def _segments(sorted_key, tally):
     """For a sorted 1-D key: per element, the first and last position of its
-    run of equal keys."""
+    run of equal keys, from one ``run_bounds`` call. ``tally`` (a span)
+    counts the ``keys`` and the ``kernel_keys`` of them the kernel took."""
     m = sorted_key.shape[0]
-    pos, head, first = run_starts(sorted_key)
-    tail = torch.ones_like(head)
-    tail[:-1] = head[1:]
-    last = torch.flip(
-        torch.cummin(torch.flip(torch.where(tail, pos, torch.full_like(pos, m)), (0,)), 0).values,
-        (0,),
-    )
-    return first, last
+    tally.count(keys=m, kernel_keys=m if run_kernels.takes_kernel(sorted_key) else 0)
+    return run_kernels.run_bounds(sorted_key, with_last=True)
 
 
 def _fast_forest_orders(X, seeds, leaf_size: int, max_depth: int, angular: bool):
@@ -158,29 +154,32 @@ def _fast_forest_orders(X, seeds, leaf_size: int, max_depth: int, angular: bool)
     seed_t = torch.tensor([int(s) for s in seeds], dtype=torch.int64, device=dev)[:, None]
     span = 1 << max_depth
     node = torch.zeros((T, n), dtype=torch.int64, device=dev)
-    for level in range(max_depth):
-        pl = R_bank[:, level, :] @ Xf.T  # [T, n]
-        if inv_norms is not None:
-            pl = pl * inv_norms
+    with profiling.span("forest/levels", dev) as sp:
+        for level in range(max_depth):
+            pl = R_bank[:, level, :] @ Xf.T  # [T, n]
+            if inv_norms is not None:
+                pl = pl * inv_norms
+            key = (trow * span + node).reshape(-1)
+            skey, perm = torch.sort(key, stable=True)
+            first, last = _segments(skey, sp)
+            csum = torch.cumsum(pl.reshape(-1)[perm].to(torch.float64), 0)
+            before = torch.where(first > 0, csum[torch.clamp(first - 1, min=0)],
+                                 torch.zeros_like(csum))
+            cnt = last - first + 1
+            if not bool((cnt > leaf_size).any()):
+                break  # every node froze: further levels only shift node ids
+            mean = ((csum[last] - before) / cnt).to(torch.float32)
+            thr_s = torch.where(cnt <= leaf_size, torch.full_like(mean, float("inf")), mean)
+            thr = torch.empty_like(thr_s)
+            thr[perm] = thr_s
+            thr = thr.view(T, n)
+            coin = (_hash3(seed_t, level * 2 + 7, point_ids[None]) & 1).to(torch.bool)
+            side = torch.where(pl == thr, coin, pl > thr)
+            node = node * 2 + side.to(torch.int64)
+            sp.count(levels=1)
         key = (trow * span + node).reshape(-1)
         skey, perm = torch.sort(key, stable=True)
-        first, last = _segments(skey)
-        csum = torch.cumsum(pl.reshape(-1)[perm].to(torch.float64), 0)
-        before = torch.where(first > 0, csum[torch.clamp(first - 1, min=0)], torch.zeros_like(csum))
-        cnt = last - first + 1
-        if not bool((cnt > leaf_size).any()):
-            break  # every node froze: further levels only shift node ids
-        mean = ((csum[last] - before) / cnt).to(torch.float32)
-        thr_s = torch.where(cnt <= leaf_size, torch.full_like(mean, float("inf")), mean)
-        thr = torch.empty_like(thr_s)
-        thr[perm] = thr_s
-        thr = thr.view(T, n)
-        coin = (_hash3(seed_t, level * 2 + 7, point_ids[None]) & 1).to(torch.bool)
-        side = torch.where(pl == thr, coin, pl > thr)
-        node = node * 2 + side.to(torch.int64)
-    key = (trow * span + node).reshape(-1)
-    skey, perm = torch.sort(key, stable=True)
-    first, last = _segments(skey)
+        first, last = _segments(skey, sp)
     offs = (trow * n).reshape(T, 1)
     order = (perm.view(T, n) - offs).to(torch.int32)
     start = (first.view(T, n) - offs).to(torch.int32)

@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # X, starts, sizes, n_leaves, n, d, metric, out, stream
     "pynnd_leaf_allpairs": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -46,6 +46,8 @@ _SIGNATURES = {
                           _I, _I, _P, _P, _P, _P],
     # X, is_bf16, W, d, q_ids, b, pool, P, win_start, metric, out, stream
     "pynnd_join_dists": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+    # key, m, first, last (or null), stream
+    "pynnd_run_bounds": [_P, _L, _P, _P, _P],
 }
 
 _lib = None

@@ -75,6 +75,7 @@ def test_tracing_changes_no_result(data, traced):
     ("build", None, "build"),
     ("ingest", "build", "build"),
     ("phase/forest", "build", "build"),
+    ("forest/levels", "phase/forest", "build"),
     ("phase/descent", "build", "build"),
     ("descent/init", "phase/descent", "build"),
     ("descent/sweeps", "phase/descent", "build"),

@@ -1619,7 +1619,7 @@ def phase_search(torch, state):
     dist_fn = tnd._resolve_rowwise_metric(metric, cast_candidates_f32=True)
     loop_kw = dict(k=k, epsilon=eps, min_distance=index._min_distance, max_steps=n,
                    expansions_per_step=E)
-    seed_z, beam_z = ts._top_k_order(width, k + leaf_max), ts._top_k_order(width, E * adj.shape[1])
+    seed_z = ts._top_k_order(width, k + leaf_max)
 
     # the main path: one call of the pool's 10,000 queries (two blocks), then
     # single-query calls as the cell sends them
@@ -1662,7 +1662,7 @@ def phase_search(torch, state):
     for a, b, what in zip(got, want, ("ids", "distances", "flags")):
         if not torch.equal(a, b):
             raise AssertionError(f"search_seed: {what} differ from the torch loop on exact rows")
-    gi, gd, gs = sk.beam_search(Qi, Xi, adj, got, metric=metric, signed_zero=beam_z, **loop_kw)
+    gi, gd, gs = sk.beam_search(Qi, Xi, adj, got, metric=metric, **loop_kw)
     ws_state, ws = ts._beam_loop(Qi, Xi, adj, want, dist_rowwise=dist_fn, **loop_kw)
     if not (torch.equal(gi, ws_state.idx[:, :k]) and torch.equal(gd, ws_state.dist[:, :k])
             and int(gs.max()) == ws):
@@ -1695,7 +1695,7 @@ def phase_search(torch, state):
     want = ts._seed_beam(Q, X, tree, lo, hi, rand, beam_width=width, leaf_max=leaf_max,
                          dist_rowwise=dist_fn)
     seed_same = compare("search_seed", got.idx, got.dist, want.idx, want.dist)
-    gi, gd, gs = sk.beam_search(Q, X, adj, got, metric=metric, signed_zero=beam_z, **loop_kw)
+    gi, gd, gs = sk.beam_search(Q, X, adj, got, metric=metric, **loop_kw)
     ws_state, ws = ts._beam_loop(Q, X, adj, got, dist_rowwise=dist_fn, **loop_kw)
     beam_same = compare("beam_search", gi, gd, ws_state.idx[:, :k], ws_state.dist[:, :k])
     log(f"[15 search] index rows, 8192 queries: ids equal the torch loop's on {seed_same:.4f} "
@@ -1721,7 +1721,7 @@ def phase_search(torch, state):
         seed_ms, st = device_ms(lambda: sk.search_seed(q, X, tree, c, r, metric=metric,
                                                        beam_width=width, signed_zero=seed_z), True)
         beam_ms, out = device_ms(lambda: sk.beam_search(q, X, adj, st, metric=metric,
-                                                        signed_zero=beam_z, **loop_kw), True)
+                                                        **loop_kw), True)
         return seed_ms, beam_ms, st, c, out[2]
 
     def plain(q, st):

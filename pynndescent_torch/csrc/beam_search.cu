@@ -42,7 +42,12 @@
 //   ops/neighbors.py::merge_candidates does: order by (distance, id), an id
 //   kept once with its smallest distance, the incumbent winning an exact tie,
 //   inserted entries flagged, incumbents keeping their flags; -0.0 ranks
-//   before +0.0 where the torch merge takes its top-k path (signed_zero).
+//   before +0.0 where the torch merge takes its top-k path (signed_zero,
+//   the seed's merges only: a step's merge is never on that path).
+// * after a step's merge the beam keeps its entries under the new bound,
+//   at least the seed's width W and at most cap (the torch loop's
+//   _keep_admitted): the beam's length grows with what the bound admits,
+//   in shared memory laid out for cap entries.
 //   A query stops when no flagged entry is under its bound, leaving the
 //   state the lockstep loop leaves it in.
 #include <cuda_runtime.h>
@@ -206,7 +211,7 @@ __device__ __forceinline__ SearchSmem carve(unsigned char* base, int d, int W, i
   return s;
 }
 
-// Empty beam buffers (before the block's first barrier).
+// Empty beam buffers of W entries (before the block's first barrier).
 __device__ __forceinline__ void clear_state(const SearchSmem& s, int W) {
   for (int i = threadIdx.x; i < W; i += kSearchThreads) {
     for (int b = 0; b < 2; ++b) {
@@ -256,26 +261,47 @@ __device__ __forceinline__ void candidate_distances(const SearchSmem& s, const v
   }
 }
 
-// Merges the candidates (cd, ci)[0, m) into beam buffer cur of width W and
-// returns the buffer that holds the result (ops/neighbors.py::
-// merge_candidates). Three passes, each ended by a barrier: the candidates
-// (dropped when invalid, beaten by an incumbent or an earlier candidate of
-// their id, or worse than the last entry of a full beam;
-// an incumbent they beat is marked removed), the incumbents, then every kept
-// entry's rank among the kept entries by (distance, id), which is its place
-// if under W. The result is sorted.
-__device__ __forceinline__ int merge_beam(const SearchSmem& s, int cur, int W, int m,
-                                          bool signed_zero) {
+// d_k + epsilon (d_k - min_distance), each operation rounded as torch does
+__device__ __forceinline__ float search_bound(float dk, float epsilon, float min_distance) {
+  return __fadd_rn(dk, __fmul_rn(epsilon, __fsub_rn(dk, min_distance)));
+}
+
+// What a step's merge needs to keep the entries its bound admits.
+struct Grow {
+  int base;  // the least length, the seed's width
+  int cap;  // the most
+  int k;
+  float epsilon, min_distance;
+};
+
+// Merges the candidates (cd, ci)[0, m) into beam buffer cur, whose first
+// len entries are the beam, and returns the buffer that holds the result
+// (ops/neighbors.py::merge_candidates). Three passes, each ended by a
+// barrier: the candidates (dropped when invalid, beaten by an incumbent or
+// an earlier candidate of their id, or worse than the last entry of a full
+// beam and, kGrow, not under the bound; an incumbent they beat is marked
+// removed), the incumbents, then every kept entry's rank among the kept
+// entries by (distance, id), which is its place if under the result's room:
+// len without kGrow; with it min(g.cap, len + m), and a fourth pass cuts
+// the result to its entries under the new bound, at least g.base of them
+// (models/search.py::_keep_admitted). The result is sorted; len is set to
+// its length.
+template <bool kGrow>
+__device__ __forceinline__ int merge_beam(const SearchSmem& s, int cur, int& len, int m,
+                                          bool signed_zero, const Grow& g) {
   const int nxt = cur ^ 1;
   const float* bd = s.bd(cur);
   const int* bi = s.bi(cur);
   const unsigned char* bf = s.bf(cur);
+  const int W = len;
+  const int room = kGrow ? min(g.cap, W + m) : W;
   const bool full = bi[W - 1] >= 0;
   const float worst = bd[W - 1];
+  const float bound = kGrow ? search_bound(bd[g.k - 1], g.epsilon, g.min_distance) : 0.0f;
   for (int j = threadIdx.x; j < m; j += kSearchThreads) {
     const int id = s.ci[j];
     const float dj = s.cd[j];
-    bool keep = id >= 0 && dj != INFINITY && !(full && dj > worst);
+    bool keep = id >= 0 && dj != INFINITY && !(full && dj > worst && !(kGrow && dj < bound));
     if (keep) {
       bool beaten = false;
 #pragma unroll 4
@@ -295,9 +321,11 @@ __device__ __forceinline__ int merge_beam(const SearchSmem& s, int cur, int W, i
     s.keys[W + j] = keep ? entry_key(dj, id, signed_zero) : kNoKey;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < W; i += kSearchThreads) {
-    s.keys[i] = bi[i] >= 0 && !s.removed[i] ? entry_key(bd[i], bi[i], signed_zero) : kNoKey;
-    s.removed[i] = 0;
+  for (int i = threadIdx.x; i < room; i += kSearchThreads) {
+    if (i < W) {
+      s.keys[i] = bi[i] >= 0 && !s.removed[i] ? entry_key(bd[i], bi[i], signed_zero) : kNoKey;
+      s.removed[i] = 0;
+    }
     s.bd(nxt)[i] = INFINITY;
     s.bi(nxt)[i] = -1;
     s.bf(nxt)[i] = 0;
@@ -310,7 +338,7 @@ __device__ __forceinline__ int merge_beam(const SearchSmem& s, int cur, int W, i
     int rank = 0;
 #pragma unroll 8
     for (int y = 0; y < total; ++y) rank += s.keys[y] < kx;
-    if (rank >= W) continue;
+    if (rank >= room) continue;
     float d = x < W ? bd[x] : s.cd[x - W];
     int id = x < W ? bi[x] : s.ci[x - W];
     if (isinf(d)) id = -1;  // as merge_candidates leaves a -inf distance
@@ -319,6 +347,19 @@ __device__ __forceinline__ int merge_beam(const SearchSmem& s, int cur, int W, i
     s.bf(nxt)[rank] = (x < W ? bf[x] : 1) && id >= 0;
   }
   __syncthreads();
+  if (kGrow) {
+    // the sorted result's entries under its bound, counted a stride at a time
+    const float* nd = s.bd(nxt);
+    const float nb = search_bound(nd[g.k - 1], g.epsilon, g.min_distance);
+    int under = 0;
+    for (int i0 = 0; i0 < room; i0 += kSearchThreads) {
+      const int i = i0 + threadIdx.x;
+      under += __syncthreads_count(i < room && nd[i] < nb);
+    }
+    len = max(g.base, under);
+    // entries past the new length are gone; the next merge clears them as
+    // it writes this buffer again
+  }
   return nxt;
 }
 
@@ -384,7 +425,8 @@ search_seed_kernel(const void* __restrict__ X, int d, int vec, const float* __re
     __syncthreads();
     candidate_distances<kBf16>(s, X, d, vec, metric, qsq, m);
     __syncthreads();
-    cur = merge_beam(s, cur, W, m, signed_zero);
+    int len = W;
+    cur = merge_beam<false>(s, cur, len, m, signed_zero, Grow{});
   }
   const long long o = static_cast<long long>(qi) * W;
   for (int i = threadIdx.x; i < W; i += kSearchThreads) {
@@ -399,18 +441,19 @@ __global__ void __launch_bounds__(kSearchThreads, kSearchBlocksPerSm)
 beam_search_kernel(const void* __restrict__ X, int d, int vec, const float* __restrict__ Q,
                    const int* __restrict__ adj, int deg, const int* __restrict__ seed_idx,
                    const float* __restrict__ seed_dist,
-                   const unsigned char* __restrict__ seed_flag, int W, int k, float epsilon,
-                   float min_distance, int max_steps, int E, int metric, int signed_zero,
+                   const unsigned char* __restrict__ seed_flag, int W, int cap, int k,
+                   float epsilon, float min_distance, int max_steps, int E, int metric,
                    int* __restrict__ out_idx, float* __restrict__ out_dist,
                    int* __restrict__ out_steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int sel_id[kMaxExpand], sel_pos[kMaxExpand];
   const int m = E * deg;
-  const SearchSmem s = carve(smem_raw, d, W, m);
+  const SearchSmem s = carve(smem_raw, d, cap, m);
   const int qi = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long o = static_cast<long long>(qi) * W;
-  clear_state(s, W);
+  const Grow grow{W, cap, k, epsilon, min_distance};
+  clear_state(s, cap);
   for (int i = threadIdx.x; i < W; i += kSearchThreads) {
     s.bd(0)[i] = seed_dist[o + i];
     s.bi(0)[i] = seed_idx[o + i];
@@ -418,14 +461,12 @@ beam_search_kernel(const void* __restrict__ X, int d, int vec, const float* __re
   }
   const float qsq = load_query(s, Q, qi, d);  // ends in a barrier
 
-  int cur = 0, steps = 0;
+  int cur = 0, steps = 0, len = W;
   while (steps < max_steps) {
     const float* bd = s.bd(cur);
-    const float dk = bd[k - 1];
-    // d_k + epsilon (d_k - min_distance), each operation rounded as torch does
-    const float bound = __fadd_rn(dk, __fmul_rn(epsilon, __fsub_rn(dk, min_distance)));
+    const float bound = search_bound(bd[k - 1], epsilon, min_distance);
     int active = 0;
-    for (int i = threadIdx.x; i < W; i += kSearchThreads) {
+    for (int i = threadIdx.x; i < len; i += kSearchThreads) {
       active |= s.bf(cur)[i] && bd[i] < bound;
     }
     if (!__syncthreads_or(active)) break;
@@ -437,7 +478,7 @@ beam_search_kernel(const void* __restrict__ X, int d, int vec, const float* __re
       uint32_t taken = 0;
       for (int e = 0; e < E; ++e) {
         uint32_t key = 0xffffffffu, at = 0xffffffffu;
-        for (int t = 0, i = lane; i < W; ++t, i += 32) {
+        for (int t = 0, i = lane; i < len; ++t, i += 32) {
           if ((taken >> t) & 1u) continue;
           const uint32_t ki = order_key(s.bf(cur)[i] ? bd[i] : INFINITY, E > 1);
           if (ki < key) {
@@ -467,7 +508,7 @@ beam_search_kernel(const void* __restrict__ X, int d, int vec, const float* __re
     __syncthreads();
     candidate_distances<kBf16>(s, X, d, vec, metric, qsq, m);
     __syncthreads();
-    cur = merge_beam(s, cur, W, m, signed_zero);
+    cur = merge_beam<true>(s, cur, len, m, false, grow);
     ++steps;
   }
   const long long ok = static_cast<long long>(qi) * k;
@@ -533,13 +574,14 @@ extern "C" int pynnd_search_seed(const void* X, int is_bf16, int n, int d, const
 
 extern "C" int pynnd_beam_search(const void* X, int is_bf16, int n, int d, const void* Q, int q,
                                  const void* adj, int deg, const void* seed_idx,
-                                 const void* seed_dist, const void* seed_flag, int W, int k,
-                                 float epsilon, float min_distance, int max_steps, int E,
-                                 int metric, int signed_zero, void* out_idx, void* out_dist,
-                                 void* out_steps, void* stream) {
+                                 const void* seed_dist, const void* seed_flag, int W, int cap,
+                                 int k, float epsilon, float min_distance, int max_steps, int E,
+                                 int metric, void* out_idx, void* out_dist, void* out_steps,
+                                 void* stream) {
   using namespace pynnd;
-  const int smem = search_smem_bytes(d, W, E * deg);
-  if (metric < 0 || metric >= kNumMetrics || d < 1 || n < 1 || q < 0 || W < 1 || W > kMaxBeam ||
+  const int smem = search_smem_bytes(d, cap, E * deg);
+  if (metric < 0 || metric >= kNumMetrics || d < 1 || n < 1 || q < 0 || W < 1 || cap < W ||
+      cap > kMaxBeam ||
       k < 1 || k > W || E < 1 || E > kMaxExpand || E > W || deg < 1 || E * deg > kMaxCand ||
       smem > kMaxDynamicSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -555,8 +597,8 @@ extern "C" int pynnd_beam_search(const void* X, int is_bf16, int n, int d, const
     kernel<<<q, kSearchThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         X, d, vec, static_cast<const float*>(Q), static_cast<const int*>(adj), deg,
         static_cast<const int*>(seed_idx), static_cast<const float*>(seed_dist),
-        static_cast<const unsigned char*>(seed_flag), W, k, epsilon, min_distance, max_steps, E,
-        metric, signed_zero, static_cast<int*>(out_idx), static_cast<float*>(out_dist),
+        static_cast<const unsigned char*>(seed_flag), W, cap, k, epsilon, min_distance,
+        max_steps, E, metric, static_cast<int*>(out_idx), static_cast<float*>(out_dist),
         static_cast<int*>(out_steps));
   };
   if (is_bf16) launch(beam_search_kernel<true>);

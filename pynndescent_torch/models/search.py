@@ -2,10 +2,20 @@
 pynndescent_tpu/models/search.py).
 
 A batch of queries steps in lockstep: each query keeps one sorted beam of
-``beam_width`` (distance, id, unexpanded) entries; every step expands the
-``expansions_per_step`` best unexpanded entries under the bound
+at least ``beam_width`` (distance, id, unexpanded) entries; every step
+expands the ``expansions_per_step`` best unexpanded entries under the bound
 ``d_k + epsilon * (d_k - min_distance)``, computes the distances of their
 adjacency rows and merges them back (the merge's dedup is the visited set).
+After a step's merge the beam keeps every entry under the new bound, at
+least ``beam_width`` entries and at most ``ops/search_kernels.grown_width``
+of it (GROWTH times): pynndescent's search queue drops no candidate the
+bound admits, so a beam cut at a fixed width ends the search where epsilon
+does not (the JAX package's beam keeps a fixed width, a static shape
+there). The limit holds the cost of a query whose bound admits a large
+part of the data (a query far from every cluster) to a few times the
+fixed beam's. An entry past ``beam_width`` and over the bound can neither
+be expanded nor reach the top k, so where no more than ``beam_width``
+entries are under the bound the beam is the fixed-width one.
 The JAX package runs the loop as a device ``while_loop``. Here dense float
 rows on a CUDA device run it in two hand-written kernels
 (``ops/search_kernels.py``), each query in its own loop, with no host sync;
@@ -174,7 +184,7 @@ def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
             idx, dist, steps = sk.beam_search(
                 queries, X, adj, state, metric=kernel, k=k,
                 epsilon=epsilon, min_distance=min_distance, max_steps=max_steps,
-                expansions_per_step=E, signed_zero=_top_k_order(beam_width, E * adj.shape[1]))
+                expansions_per_step=E)
             if sp is not profiling.NULL_SPAN:
                 sp.count(steps=steps.max(), queries=q, kernel_queries=q)
             return idx, dist, steps
@@ -185,19 +195,49 @@ def search_block(queries, X, adj, tree, gen, *, k: int, epsilon: float,
     return state.idx[:, :k], state.dist[:, :k], steps
 
 
+def _widen(state: NeighborState, width: int) -> NeighborState:
+    """``state`` with empty slots appended up to ``width`` columns."""
+    extra = width - state.idx.shape[1]
+    if extra <= 0:
+        return state
+    pad = make_neighbor_state(state.idx.shape[0], extra, device=state.idx.device)
+    return NeighborState(*(torch.cat([a, b], dim=1) for a, b in zip(state, pad)))
+
+
+def _keep_admitted(state: NeighborState, *, k: int, epsilon: float, min_distance: float,
+                   base: int):
+    """A merged (sorted) beam cut to each query's entries under its bound,
+    and at least its first ``base``; the columns past every query's cut are
+    dropped. Returns (state, whether any query has a flagged entry under its
+    bound), both from one host sync."""
+    bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
+    under = state.dist < bound[:, None]
+    keep = torch.clamp(under.sum(dim=1), min=base)
+    width, active = torch.stack([keep.max(), (state.flag & under).any().to(keep.dtype)]).tolist()
+    gone = torch.arange(width, device=keep.device)[None, :] >= keep[:, None]
+    idx, dist, flag = (a[:, :width] for a in state)
+    return NeighborState(torch.where(gone, torch.full_like(idx, -1), idx),
+                         torch.where(gone, torch.full_like(dist, float("inf")), dist),
+                         flag & ~gone), bool(active)
+
+
 def _beam_loop(queries, X, adj, state: NeighborState, *, k: int, epsilon: float,
                min_distance: float, dist_rowwise, max_steps: int, expansions_per_step: int):
     """The beam's steps from ``state``, in lockstep, each "any query still
     active" test a host sync: the torch loop of ``search_block`` and the
-    reference of the ``beam_search`` kernel. Returns (state, steps)."""
+    reference of the ``beam_search`` kernel. The beam starts at the state's
+    width and grows past it with what the bound admits (the module's
+    docstring), up to ``sk.grown_width`` of it. Returns (state, steps): the
+    state as wide as its widest beam, empty slots past each query's."""
     q = queries.shape[0]
     E = expansions_per_step
     deg = adj.shape[1]
+    base = state.idx.shape[1]
+    cap = sk.grown_width(base)
     steps = 0
-    while steps < max_steps:
-        bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
-        if not bool((state.flag & (state.dist < bound[:, None])).any()):
-            break
+    bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
+    active = bool((state.flag & (state.dist < bound[:, None])).any())
+    while steps < max_steps and active:
         masked = torch.where(state.flag, state.dist, torch.full_like(state.dist, float("inf")))
         if E == 1:
             pos = torch.argmin(masked, dim=1, keepdim=True)
@@ -214,7 +254,11 @@ def _beam_loop(queries, X, adj, state: NeighborState, *, k: int, epsilon: float,
         nbrs = torch.where(do.repeat_interleave(deg, dim=1), nbrs, torch.full_like(nbrs, -1))
         nd = dist_rowwise(queries, X[torch.clamp(nbrs, min=0).to(torch.int64)])
         nd = torch.where(nbrs < 0, torch.full_like(nd, float("inf")), nd)
-        state, _ = merge_candidates(state, nbrs, nd)
+        state, _ = merge_candidates(_widen(state, min(cap, state.idx.shape[1] + E * deg)),
+                                    nbrs, nd)
+        state, active = _keep_admitted(state, k=k, epsilon=epsilon, min_distance=min_distance,
+                                       base=base)
+        bound = _bound(state.dist[:, k - 1], epsilon, min_distance)
         steps += 1
     return state, steps
 

@@ -484,7 +484,7 @@ def init_from_forest(part: RowPart, orders, starts, sizes, dist_rowwise, leaf_ca
 
 
 def kernel_forest_init(state: NeighborState, X, orders, starts, sizes, metric: str,
-                       block_rows: int = 8192):
+                       block_rows: int = 8192, tally=profiling.NULL_SPAN):
     """Forest init through the ``leaf_allpairs`` kernel (replaces JAX
     ``pallas_forest_init``, :579). Per tree: permute X into tree order, one
     kernel launch for every leaf's distance tile, rebuild the leaf-member
@@ -494,7 +494,9 @@ def kernel_forest_init(state: NeighborState, X, orders, starts, sizes, metric: s
     The leaf table is sized by the true leaf count (the JAX package capped
     it at the TPU's SMEM budget). The tile is LEAF_CAP = 64 rows whatever
     the leaf size, as the JAX package's rounding of ``leaf_cap`` to a
-    multiple of 64, capped at 64, always gives."""
+    multiple of 64, capped at 64, always gives. ``tally`` (a span) counts
+    the ``leaf_rows`` (each tree's rows) and, as a device tensor, the
+    ``leaf_covered`` (those within their leaf's first LEAF_CAP)."""
     n = X.shape[0]
     dev = X.device
     cap = ik.LEAF_CAP
@@ -503,6 +505,8 @@ def kernel_forest_init(state: NeighborState, X, orders, starts, sizes, metric: s
     head = starts == pos[None]
     leaf_rank = _long(torch.cumsum(head.to(torch.int32), dim=1) - 1)
     covered = (pos[None] - starts) < cap
+    if tally is not profiling.NULL_SPAN:
+        tally.count(leaf_rows=covered.numel(), leaf_covered=covered.sum())
     offs = torch.arange(cap, dtype=torch.int64, device=dev)
     b = min(block_rows, n)
     for t in range(orders.shape[0]):
@@ -677,7 +681,7 @@ def nn_descent(
     block_rows = join_block_rows(n, d_bytes, max_candidates, hop2_new_samples, hop2_old_samples,
                                  block_rows)
 
-    with profiling.span("descent/init", dev):
+    with profiling.span("descent/init", dev) as init_span:
         if compute_dtype is not None and X.dtype == torch.float32 and isinstance(metric, str):
             X_join = X.to(compute_dtype)
         else:
@@ -692,7 +696,8 @@ def nn_descent(
             orders, starts, sizes = forest
             leaf_metric = kernel_metric(dist_rowwise, X_join, LEAF_KERNEL_DTYPES)
             if kernel_init and leaf_metric and shards is None:
-                state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=leaf_metric)
+                state = kernel_forest_init(state, X_join, orders, starts, sizes, metric=leaf_metric,
+                                           tally=init_span)
             else:
                 fb = forest_block_rows(int(orders.shape[0]), leaf_cap, d_bytes)
                 tables = {}

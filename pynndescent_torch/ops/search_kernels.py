@@ -3,7 +3,8 @@
 * ``search_seed`` — the search tree's descent and the beam's seeding: every
   member of the query's leaf and its random ids, merged into an empty beam;
 * ``beam_search`` — the epsilon-bounded beam's steps, each query in its own
-  loop until no flagged entry is under its bound.
+  loop until no flagged entry is under its bound, its beam growing past the
+  seed's width with the entries the bound admits, up to ``grown_width``.
 
 They take the place of ``models/search.py``'s torch loop for the inputs
 ``models.search.kernel_inputs`` accepts; that loop is their plain version,
@@ -26,6 +27,8 @@ MAX_CANDIDATES = 1024  # expansions_per_step * degree
 MAX_EXPANSIONS = 64
 SEED_CHUNK = 256
 MAX_SMEM_BYTES = 160 * 1024
+# a beam grows to at most GROWTH times its width (models/search.py)
+GROWTH = 4
 
 LAUNCHES = {"search_seed": 0, "beam_search": 0}
 
@@ -45,14 +48,22 @@ def smem_bytes(d: int, beam_width: int, candidates: int) -> int:
     return -(-raw // 16) * 16
 
 
+def grown_width(beam_width: int) -> int:
+    """The most entries a beam of ``beam_width`` grows to: GROWTH times its
+    width, within MAX_BEAM, and never less than the width."""
+    return max(beam_width, min(MAX_BEAM, GROWTH * beam_width))
+
+
 def fits(d: int, beam_width: int, expansions_per_step: int, degree: int) -> bool:
-    """Whether both kernels' blocks fit their shared-memory plan."""
+    """Whether both kernels' blocks fit their shared-memory plan: the seed's
+    beam of ``beam_width`` entries, and the steps' of up to
+    ``grown_width(beam_width)``."""
     cand = expansions_per_step * degree
     return (1 <= beam_width <= MAX_BEAM and 1 <= expansions_per_step <= min(MAX_EXPANSIONS,
                                                                             beam_width)
             and 1 <= cand <= MAX_CANDIDATES
-            and max(smem_bytes(d, beam_width, cand), smem_bytes(d, beam_width, SEED_CHUNK))
-            <= MAX_SMEM_BYTES)
+            and max(smem_bytes(d, grown_width(beam_width), cand),
+                    smem_bytes(d, beam_width, SEED_CHUNK)) <= MAX_SMEM_BYTES)
 
 
 def _need(t, dtypes, what, device):
@@ -128,14 +139,16 @@ def search_seed(queries, X, tree, coins, rand_ids, *, metric: str, beam_width: i
 
 
 def beam_search(queries, X, adj, state: NeighborState, *, metric: str, k: int, epsilon: float,
-                min_distance: float, max_steps: int, expansions_per_step: int,
-                signed_zero: bool):
+                min_distance: float, max_steps: int, expansions_per_step: int):
     """Run each query's beam from ``state`` over the search graph ``adj``
-    i32 [n, deg]. ``state`` must be sorted by (distance, id) with its empty
-    slots (id -1, +inf) last, as ``search_seed`` leaves it: the merge drops a
-    candidate worse than a full beam's last entry. Returns (idx i32 [q, k], dist f32 [q, k],
-    steps i32 [q]: each query's step count). ``signed_zero``: the torch
-    merge's top-k order for a step's width."""
+    i32 [n, deg], as ``models/search.py::_beam_loop`` does: the beam keeps
+    at least the state's width and grows with what the bound admits, up to
+    ``grown_width`` of it.
+    ``state`` must be sorted by (distance, id) with its empty slots (id -1,
+    +inf) last, as ``search_seed`` leaves it: the merge drops a candidate
+    worse than a full beam's last entry unless the bound admits it. Returns
+    (idx i32 [q, k], dist f32 [q, k], steps i32 [q]: each query's step
+    count)."""
     _check_rows(queries, X)
     dev = X.device
     q, d = queries.shape
@@ -161,9 +174,9 @@ def beam_search(queries, X, adj, state: NeighborState, *, metric: str, k: int, e
     err = lib.pynnd_beam_search(
         X.data_ptr(), int(X.dtype == torch.bfloat16), X.shape[0], d, queries.data_ptr(), q,
         adj.data_ptr(), adj.shape[1], state.idx.data_ptr(), state.dist.data_ptr(),
-        state.flag.data_ptr(), width, k, float(epsilon), float(min_distance),
+        state.flag.data_ptr(), width, grown_width(width), k, float(epsilon), float(min_distance),
         int(min(max_steps, 2 ** 31 - 1)), expansions_per_step, ik._metric_id(metric),
-        int(signed_zero), idx.data_ptr(), dist.data_ptr(), steps.data_ptr(),
+        idx.data_ptr(), dist.data_ptr(), steps.data_ptr(),
         cuda_build.stream_handle(dev))
     cuda_build.check(err, "beam_search")
     LAUNCHES["beam_search"] += 1

@@ -40,9 +40,9 @@ _SIGNATURES = {
     # flag, stream
     "pynnd_search_seed": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    # X, is_bf16, n, d, Q, q, adj, deg, seed idx, dist, flag, W, k, epsilon,
-    # min_distance, max_steps, E, metric, signed_zero, idx, dist, steps, stream
-    "pynnd_beam_search": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _F, _F, _I, _I,
+    # X, is_bf16, n, d, Q, q, adj, deg, seed idx, dist, flag, W, cap, k, epsilon,
+    # min_distance, max_steps, E, metric, idx, dist, steps, stream
+    "pynnd_beam_search": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _I,
                           _I, _I, _P, _P, _P, _P],
     # X, is_bf16, W, d, q_ids, b, pool, P, win_start, metric, out, stream
     "pynnd_join_dists": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P],

@@ -141,8 +141,7 @@ def main():
             signed_zero=ts._top_k_order(width, k + leaf_max)), "search_seed")
         beam_ms, (idx, d_, steps) = events(lambda: sk.beam_search(
             q, X, adj, state, metric=metric, k=k, epsilon=eps, min_distance=index._min_distance,
-            max_steps=X.shape[0], expansions_per_step=E,
-            signed_zero=ts._top_k_order(width, E * adj.shape[1])), "beam_search")
+            max_steps=X.shape[0], expansions_per_step=E), "beam_search")
         return seed_ms, beam_ms, idx, d_, steps
 
     def torch_parts(q):

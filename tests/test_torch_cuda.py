@@ -488,7 +488,7 @@ def test_beam_kernel_equals_the_torch_loop_from_a_given_state(cuda_device):
                           signed_zero=False)
     state = seed._replace(dist=seed.dist + 1.0)
     kw = dict(k=10, epsilon=0.2, min_distance=0.0, max_steps=3000, expansions_per_step=2)
-    gi, gd, gs = sk.beam_search(Q, Xd, adjd, state, metric="sqeuclidean", signed_zero=False, **kw)
+    gi, gd, gs = sk.beam_search(Q, Xd, adjd, state, metric="sqeuclidean", **kw)
     want, ws = ts._beam_loop(Q, Xd, adjd, state,
                              dist_rowwise=tnd._resolve_rowwise_metric("sqeuclidean"), **kw)
     np.testing.assert_array_equal(n(gi), n(want.idx[:, :10]))
@@ -591,7 +591,7 @@ def test_search_kernel_wrappers_reject_bad_input(cuda_device):
     state = sk.search_seed(Q, X, None, None, rand, **kw)
     adj = torch.zeros((100, 8), dtype=torch.int32, device=cuda_device)
     bkw = dict(metric="sqeuclidean", k=10, epsilon=0.1, min_distance=0.0, max_steps=10,
-               expansions_per_step=2, signed_zero=False)
+               expansions_per_step=2)
     sk.beam_search(Q, X, adj, state, **bkw)
     with pytest.raises(ValueError, match="CUDA"):
         sk.search_seed(Q.cpu(), X.cpu(), None, None, rand.cpu(), **kw)

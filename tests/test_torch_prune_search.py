@@ -180,3 +180,33 @@ def test_expansion_default_pinned():
 
     assert inspect.signature(ts.search).parameters["expansions_per_step"].default == 2
     assert inspect.signature(ts.search_block).parameters["expansions_per_step"].default == 2
+
+
+# (sorted distances of two beams, epsilon, the least width, the entries kept)
+KEEP_CASES = [
+    ("cut_at_the_bound", [[1, 2, 3, 4, 5, 6]], 1.0, 2, [3]),  # bound 2 + 1 * 2 = 4
+    ("never_below_the_width", [[1, 2, 3, 4, 5, 6]], 0.0, 4, [4]),
+    ("each_beam_its_own", [[1, 2, 3, 4, 5, 6], [1, 1, 1, 1, 1, 9]], 0.5, 2, [2, 5]),
+    ("empty_slots_go", [[1, 2, 3, np.inf, np.inf, np.inf]], 9.0, 2, [3]),
+]
+
+
+@pytest.mark.parametrize("dists,epsilon,base,kept", [c[1:] for c in KEEP_CASES],
+                         ids=[c[0] for c in KEEP_CASES])
+def test_keep_admitted_cuts_each_beam_at_its_bound(dists, epsilon, base, kept):
+    """After a merge the torch loop keeps each beam's entries under the
+    bound d_k + epsilon (d_k - min_distance) at k = 2, and at least its
+    first ``base``; columns past the widest beam go, empty slots fill the
+    rest, and the flag of an entry that went is cleared."""
+    d = torch.tensor(dists, dtype=torch.float32)
+    q, w = d.shape
+    ids = torch.where(torch.isinf(d), -1, torch.arange(w, dtype=torch.int32)[None] + 10)
+    state = ts.NeighborState(ids.to(torch.int32), d, torch.isfinite(d))
+    out, active = ts._keep_admitted(state, k=2, epsilon=epsilon, min_distance=0.0, base=base)
+    assert out.idx.shape == (q, max(kept)) and active
+    for row, keep in enumerate(kept):
+        np.testing.assert_array_equal(n(out.dist[row, :keep]), np.asarray(dists[row][:keep]))
+        assert (n(out.idx[row, keep:]) == -1).all() and np.isinf(n(out.dist[row, keep:])).all()
+        assert not n(out.flag[row, keep:]).any()
+    spent = state._replace(flag=torch.zeros_like(state.flag))
+    assert not ts._keep_admitted(spent, k=2, epsilon=epsilon, min_distance=0.0, base=base)[1]

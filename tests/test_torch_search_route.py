@@ -140,7 +140,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sk.beam_search(Q, X, torch.zeros((100, 8), dtype=torch.int32), state,
                        metric="sqeuclidean", k=10, epsilon=0.1, min_distance=0.0, max_steps=10,
-                       expansions_per_step=2, signed_zero=False)
+                       expansions_per_step=2)
 
 
 def test_a_tensor_counter_is_added_at_resolve():
